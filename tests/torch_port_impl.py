@@ -1,0 +1,52 @@
+"""Shared helpers of the tests/test_torch_*.py port tests: the same numpy
+inputs go to a JAX function and to its PyTorch port on the CPU."""
+
+import numpy as np
+import torch
+
+import jax.numpy as jnp
+
+
+def tt(x, dtype=None):
+    """numpy / jax array -> CPU torch tensor (same dtype unless given)."""
+    t = torch.from_numpy(np.array(x))
+    return t if dtype is None else t.to(dtype)
+
+
+def gn_problem_to_torch(problem):
+    """A JAX GNProblem -> the port's GNProblem (CPU tensors)."""
+    from occlusionfusion_tpu_torch.solvers.gauss_newton import GNProblem
+
+    f = {}
+    for name in GNProblem._fields:
+        a = np.array(getattr(problem, name))
+        if a.dtype == np.int64:
+            a = a.astype(np.int32)
+        f[name] = torch.from_numpy(a)
+    return GNProblem(**f)
+
+
+def random_pose_field(n, seed, rot=0.3, trans=0.04):
+    """Random (R [n, 3, 3], t [n, 3]) as numpy f32, via the JAX so3_exp."""
+    from occlusionfusion_tpu.geometry.so3 import so3_exp
+
+    rng = np.random.RandomState(seed)
+    R = np.asarray(so3_exp(jnp.asarray(rng.randn(n, 3).astype(np.float32) * rot)))
+    t = (rng.randn(n, 3) * trans).astype(np.float32)
+    return R, t
+
+
+def assert_knn_equivalent(d2_a, idx_a, d2_b, idx_b, queries, refs, atol):
+    """Two k-NN results agree: sorted distances within ``atol``, and every
+    row's anchor set equal except where the two differ only among refs at
+    (near-)equal distance — the order among ties is free."""
+    d2_a, d2_b = np.asarray(d2_a), np.asarray(d2_b)
+    idx_a, idx_b = np.asarray(idx_a), np.asarray(idx_b)
+    np.testing.assert_allclose(d2_a, d2_b, atol=atol, rtol=0)
+    sa = np.sort(idx_a, axis=1)
+    sb = np.sort(idx_b, axis=1)
+    for row in np.flatnonzero(np.any(sa != sb, axis=1)):
+        q = np.asarray(queries)[row]
+        for idx, d2 in ((idx_a[row], d2_b[row]), (idx_b[row], d2_a[row])):
+            true = np.sum((np.asarray(refs)[idx] - q) ** 2, axis=1)
+            np.testing.assert_allclose(np.sort(true), d2, atol=10 * atol)
