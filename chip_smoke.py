@@ -5,10 +5,11 @@ NVIDIA card.
     python3 chip_smoke.py [--ptxas] [--profile]
 
 ``--ptxas`` prints each kernel's registers and spills; ``--profile``
-traces frames 2-16 of the main path with torch.profiler and prints the
-device time by kernel name and the device's busy share over the traced
-window. The main path's frames/s of a ``--profile`` run include the
-profiler's start-up; read them from a run without it.
+traces frames 2-16 of the paths `main_path` and `envelope_flow` with
+torch.profiler and prints the device time by kernel name and the
+device's busy share over each traced window. The frames/s of a
+``--profile`` run include the profiler's start-up; read them from a run
+without it.
 
 Phases, each printing one JSON line with its wall seconds:
   1. device: the card, and `nvidia-smi --query-gpu=name,power.limit`;
@@ -18,15 +19,22 @@ Phases, each printing one JSON line with its wall seconds:
      twin's time and the least time the card could take (bound);
   4. main path: DynamicFusion.initialize + build_fused, then 16 frames of
      the fused loop (dense Gauss-Newton + motion GNN) on an analytic
-     deforming sphere at 128^3 voxels / 448x640 / 512 nodes / 8192
-     points, the sphere at 3 m; the sphere must be tracked and every
-     kernel must have been launched by this phase;
-  5. near: the same settings with the sphere at 1 m, at half the image,
-     where the reference algorithm overshoots the motion; the card must
-     reproduce the JAX package's result (NEAR_REFERENCE_Z);
-  6. parity: the loop at a small size on the card (kernels) and on the
+     deforming sphere at 128^3 voxels (dense) / 448x640 / 512 nodes /
+     8192 points, the sphere at 3 m; the sphere must be tracked and K1-K4
+     must have been launched by this phase, K4 four times per frame;
+  5. envelope_flow: the same sphere, textured, through the reference
+     envelope of bench.py: a bricked 128^3 volume (bricks of 8, 1024
+     slots), PWC flow + MaskNet (checkpoints/flow.npz) filling points
+     without a projective target, and the motion GNN; it must track,
+     flow must fill points, and K1-K4 must have been launched, K4 four
+     times per frame;
+  6. near: the main path's settings with the sphere at 1 m, at half the
+     image, where the reference algorithm overshoots the motion; the card
+     must reproduce the JAX package's result (NEAR_REFERENCE_Z);
+  7. parity: both paths at a small size on the card (kernels) and on the
      CPU (twins) must agree.
-Then one JSON line with the kernel table, the card's name and power
+Then one JSON line with the kernel table (launches counted in
+envelope_flow; both paths run all four kernels), the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Any failed
 check raises and exits nonzero. Without a CUDA device, or without the
 port's package beside this file, it exits nonzero and prints no result.
@@ -73,6 +81,10 @@ NEAR = dict(distance=1.0, h=224, w=320, vol=96, voxel=VOL * VOXEL / 96,
 NEAR_REFERENCE_Z = 0.07614488
 N_FRAMES = 16
 SEED = 0
+# the kernels both full-size paths must launch
+PATH_KERNELS = ("knn", "lbs_warp", "point_term_blocks", "arap_term_blocks")
+ENVELOPE_MAX_BRICKS = 1024  # bench.py's BENCH_MAX_BRICKS for the envelope
+GN_ITERS = 4
 
 
 def emit(obj):
@@ -90,9 +102,11 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def sphere_sequence(n_frames, h, w, r, step, distance=1.0):
+def sphere_sequence(n_frames, h, w, r, step, distance=1.0, textured=False):
     """Analytic deforming-sphere RGB-D sequence (a sphere receding along
-    the optical axis, ray-cast in closed form)."""
+    the optical axis, ray-cast in closed form), flat grey or with a smooth
+    RGB texture fixed to its surface (a function of the surface normal)
+    for optical flow to follow."""
     import numpy as np
 
     from occlusionfusion_tpu_torch.fusion.frame_loader import ArraySequence
@@ -109,9 +123,17 @@ def sphere_sequence(n_frames, h, w, r, step, distance=1.0):
         b = d @ c
         disc = b * b - (c @ c - r * r)
         t = b - np.sqrt(np.maximum(disc, 0))
-        depth = np.where((disc > 0) & (t > 0), t * d[..., 2], 0.0)
+        hit = (disc > 0) & (t > 0)
+        depth = np.where(hit, t * d[..., 2], 0.0)
         depths.append(depth.astype(np.float32))
-        colors.append(np.full((h, w, 3), 128.0, np.float32))
+        color = np.full((h, w, 3), 128.0)
+        if textured:
+            n = (t[..., None] * d - c) / r
+            tex = np.stack([np.sin(12 * n[..., 0] + 3 * n[..., 1]),
+                            np.sin(10 * n[..., 1] - 5 * n[..., 2]),
+                            np.sin(9 * n[..., 2] + 7 * n[..., 0])], -1)
+            color = np.where(hit[..., None], 128 + 100 * tex, 128.0)
+        colors.append(color.astype(np.float32))
         centers.append(c)
     return ArraySequence(colors, depths, intr), centers
 
@@ -277,6 +299,62 @@ def phase_kernels(dev):
           "rel_err_b": rel_b, "rel_err_sq": rel_s, "ms": ms,
           "ms_min": ms_lo, "ms_max": ms_hi,
           "plain_ms": plain, "bound_ms": b})
+
+    # K4: ARAP-term GN blocks, 8 edge slots per node, a fifth of them
+    # invalid (index -1 clamped to 0, weight 0)
+    E = 8
+    edges = torch.randint(0, N, (N, E), generator=gen, device=dev,
+                          dtype=torch.int32)
+    invalid = rand(N, E) < 0.2
+    ew = rand(N, E)
+    wa = torch.sqrt(2.0 * torch.where(invalid, torch.zeros_like(ew), ew))
+    edges = torch.where(invalid, torch.zeros_like(edges), edges)
+    args4 = (nodes, R, t, edges, wa)
+    out_k = gn_assembly.arap_term_blocks_cuda(*args4)
+    out_t = gn_assembly.arap_term_blocks_torch(*args4)
+
+    def seg4(out):
+        ii, ij, ji, jj, bi, bj, rsq = out
+        e = edges.long()
+        i = torch.arange(N, device=dev)[:, None].expand(N, E)
+        segs = torch.cat([(i * N + e).reshape(-1), (e * N + i).reshape(-1),
+                          (e * N + e).reshape(-1)])
+        M = torch.zeros((N * N, 36), device=dev).index_add_(
+            0, segs, torch.cat([x.reshape(-1, 36) for x in (ij, ji, jj)]))
+        M.index_add_(0, torch.arange(N, device=dev) * (N + 1),
+                     ii.reshape(-1, 36))
+        bn = torch.zeros((N, 6), device=dev).index_add_(
+            0, e.reshape(-1), bj.reshape(-1, 6)) + bi
+        return M, bn, rsq.sum()
+
+    (M1, b1, s1), (M2, b2, s2) = seg4(out_k), seg4(out_t)
+    torch.cuda.synchronize()
+    rel_M = float((M1 - M2).abs().max() / M2.abs().max())
+    rel_b = float((b1 - b2).abs().max() / b2.abs().max())
+    rel_s = float((s1 - s2).abs() / s2.abs())
+    err4 = max(float((a - b).abs().max()) for a, b in zip(out_k, out_t))
+    assert max(rel_M, rel_b, rel_s) <= 5e-5, (rel_M, rel_b, rel_s)
+    ms, ms_lo, ms_hi = cuda_ms(
+        lambda: gn_assembly.arap_term_blocks_cuda(*args4), 200)
+    plain = cuda_ms(lambda: gn_assembly.arap_term_blocks_torch(*args4),
+                    50)[0]
+    # bytes: nodes, R, t, edges, wa in; ii, ij/ji/jj, b_i, b_j, rsq out;
+    # ~330 flops per edge (rotation, residual, 6x6 accumulation)
+    b, by = bound_ms(N * 60 + N * E * 8
+                     + 4 * (N * 36 + 3 * N * E * 36 + N * 6 + N * E * 6 + N),
+                     N * E * 330)
+    rows.append(dict(
+        name="arap_term_blocks", route="cuda",
+        source="occlusionfusion_tpu_torch/csrc/arap_term.cu",
+        replaces="occlusionfusion_tpu/ops/gn_assembly.py:317",
+        max_abs_err=err4, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+        library_ms=None, shape=f"N={N} E={E}",
+    ))
+    emit({"phase": "kernel", "name": "arap_term_blocks", "rel_err_M": rel_M,
+          "rel_err_b": rel_b, "rel_err_sq": rel_s, "max_abs_err": err4,
+          "invalid_edge_slots": int(invalid.sum()), "ms": ms,
+          "ms_min": ms_lo, "ms_max": ms_hi, "plain_ms": plain,
+          "bound_ms": b})
     del q, d2_k, d2_t, idx_k, idx_t, y_k, y_t, out_k, out_t
     torch.cuda.empty_cache()
     return rows
@@ -292,7 +370,7 @@ def profiled(enabled):
     return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
 
-def report_profile(prof, wall_s):
+def report_profile(prof, wall_s, path):
     """Device time by kernel name over the traced window, and the share of
     the window the device was busy (sum of kernel times / wall)."""
     from torch.autograd import DeviceType
@@ -310,28 +388,40 @@ def report_profile(prof, wall_s):
             rows.append((dt, ev.key, ev.count))
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
-    emit({"phase": "profile", "window_s": wall_s,
+    emit({"phase": "profile", "path": path, "window_s": wall_s,
           "device_busy_s": busy_us / 1e6,
           "device_busy_share": busy_us / 1e6 / wall_s,
           "top": [{"name": k[:80], "ms": dt / 1e3, "calls": c}
                   for dt, k, c in rows[:25]]})
 
 
-def sphere_config(vol=VOL, voxel=VOXEL, max_points=MAX_POINTS):
+def sphere_config(vol=VOL, voxel=VOXEL, max_points=MAX_POINTS, **kw):
     """The main path's FusionConfig: dense vol^3 grid, 512-node cap, dense
     Gauss-Newton (4 iterations, w_point 1, w_arap 2, w_motion 1,
-    Cholesky) and the motion GNN."""
+    Cholesky) and the motion GNN; ``kw`` overrides fields (the envelope's
+    bricks and flow)."""
     from occlusionfusion_tpu_torch.fusion.pipeline import FusionConfig
     from occlusionfusion_tpu_torch.graph.edgraph import GraphConfig
     from occlusionfusion_tpu_torch.solvers.gauss_newton import GNConfig
 
-    return FusionConfig(
+    fields = dict(
         vol_dim=(vol, vol, vol), voxel_size=voxel, node_coverage=COVERAGE,
         max_nodes=MAX_NODES, max_points=max_points, max_depth_diff=0.05,
         graph=GraphConfig(node_coverage=COVERAGE, min_neighbors=2),
-        gn=GNConfig(iters=4, w_point=1.0, w_arap=2.0, w_motion=1.0,
+        gn=GNConfig(iters=GN_ITERS, w_point=1.0, w_arap=2.0, w_motion=1.0,
                     linear_solver="cholesky"),
+        brick_size=0,
     )
+    fields.update(kw)
+    return FusionConfig(**fields)
+
+
+def envelope_config():
+    """The reference envelope (bench.py's docstring) on the main path's
+    sphere: the bricked 128^3 volume (brick_size -1 resolves to 8 there,
+    1024 slots) and PWC flow + MaskNet at the JAX defaults."""
+    return sphere_config(brick_size=-1, max_bricks=ENVELOPE_MAX_BRICKS,
+                         use_flow=True)
 
 
 def near_sequence():
@@ -340,42 +430,36 @@ def near_sequence():
                            STEP_Z, NEAR["distance"])
 
 
-def phase_main_path(dev, profile=False):
-    import numpy as np
+def drive_path(path, dev, seq, cfg, net, profile, **nets):
+    """initialize + build_fused, then every frame of ``seq`` through the
+    fused step, with the launch counts set to 0 just before and read just
+    after. Returns (fusion, state, tables, info [F, 6] numpy, timings,
+    counts)."""
     import torch
 
     from occlusionfusion_tpu_torch import device as D
     from occlusionfusion_tpu_torch.fusion.pipeline import DynamicFusion
-    from occlusionfusion_tpu_torch.models.checkpoint import (
-        load_motion_complete_net,
-    )
 
-    seq, centers = sphere_sequence(N_FRAMES + 1, IMG_H, IMG_W, RADIUS, STEP_Z,
-                                   DISTANCE)
-    cfg = sphere_config()
-    net = load_motion_complete_net(device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-
     D.reset_launch_counts()
     t0 = time.perf_counter()
-    fusion = DynamicFusion(seq, cfg, device=dev)
+    fusion = DynamicFusion(seq, cfg, device=dev, **nets)
     fusion.initialize(seq.load(0))
     sc, state, tables = fusion.build_fused(net)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     infos = []
-    frame_t = []
     t1 = time.perf_counter()
     state, info = fusion.register_frame_fused(
         sc, state, tables, seq.load(1), net
     )
     infos.append(info)
     torch.cuda.synchronize()
-    frame_t.append(time.perf_counter() - t1)
+    t_first = time.perf_counter() - t1
     with profiled(profile) as prof:
         t2 = time.perf_counter()
-        for i in range(2, N_FRAMES + 1):
+        for i in range(2, len(seq)):
             state, info = fusion.register_frame_fused(
                 sc, state, tables, seq.load(i), net
             )
@@ -384,38 +468,38 @@ def phase_main_path(dev, profile=False):
         t_window = time.perf_counter() - t2
         # before the profiler's exit, which processes its trace
         t_frames = time.perf_counter() - t1
-    if prof is not None:
-        report_profile(prof, t_window)
     counts = dict(D.launch_counts)
+    if prof is not None:
+        report_profile(prof, t_window, path)
     fusion.adopt_fused_state(state)
-    peak = torch.cuda.max_memory_allocated()
-
+    n = len(seq) - 1
+    timings = {
+        "init_s": t_init, "frames_s": t_frames, "frames": n,
+        "frames_per_s": n / t_frames,
+        "frames_per_s_after_first": (n - 1) / (t_frames - t_first),
+        "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
+    }
     info_np = torch.stack(infos).cpu().numpy()
     for i, row in enumerate(info_np, start=1):
-        emit({"frame": i, "final_loss": float(row[0]),
+        emit({"path": path, "frame": i, "final_loss": float(row[0]),
               "n_correspondences": int(row[1]),
               "n_visible_nodes": int(row[2]),
               "mean_confidence": float(row[3]),
-              "solve_valid": bool(row[4] > 0.5)})
+              "solve_valid": bool(row[4] > 0.5),
+              "n_flow_filled": int(row[5])})
+    return fusion, state, tables, info_np, timings, counts
+
+
+def check_tracking(fusion, state, info_np, centers, counts):
+    """The checks every full-size path passes (K1-K4 launched, K4 once
+    per GN iteration); returns the median node translation and the
+    sphere's motion."""
+    import numpy as np
+
     n = fusion.node_count
     trans = fusion.warp.translations[:n].cpu().numpy()
     med = np.median(trans, axis=0)
     motion = centers[-1] - centers[0]
-    out = {
-        "phase": "main_path", "sphere_distance_m": DISTANCE,
-        "init_s": t_init, "frames_s": t_frames,
-        "frames": N_FRAMES, "frames_per_s": N_FRAMES / t_frames,
-        "frames_per_s_after_first": (N_FRAMES - 1) / (t_frames - frame_t[0]),
-        "nodes": n, "model_points": fusion.model_point_count,
-        "voxels": int(tables.vox_points.shape[0]),
-        "valid_voxels": int(tables.vox_valid.sum()),
-        "median_node_translation": med.tolist(),
-        "node_translation_z_quantiles_10_50_90": np.quantile(
-            trans[:, 2], [0.1, 0.5, 0.9]).tolist(),
-        "sphere_motion": motion.tolist(),
-        "launches": counts, "peak_mem_bytes": int(peak),
-    }
-    emit(out)
     assert np.isfinite(info_np).all(), "non-finite frame info"
     assert (info_np[:, 4] > 0.5).all(), "a GN solve was not valid"
     assert (info_np[:, 1] > 1000).all(), "too few correspondences"
@@ -423,9 +507,107 @@ def phase_main_path(dev, profile=False):
     assert 200 <= n <= MAX_NODES, f"{n} nodes"
     assert np.all(np.abs(med - motion) <= 4e-3), (med, motion)
     assert np.isfinite(state.tsdf.tsdf.cpu().numpy()).all()
-    for k, v in counts.items():
-        assert v > 0, f"kernel {k} was not launched on the main path"
-    return counts, out
+    for k in PATH_KERNELS:
+        assert counts[k] > 0, f"kernel {k} was not launched on this path"
+    assert counts["arap_term_blocks"] == GN_ITERS * len(info_np), counts
+    return med, motion, trans
+
+
+def phase_main_path(dev, profile=False):
+    import numpy as np
+
+    from occlusionfusion_tpu_torch.models.checkpoint import (
+        load_motion_complete_net,
+    )
+
+    seq, centers = sphere_sequence(N_FRAMES + 1, IMG_H, IMG_W, RADIUS, STEP_Z,
+                                   DISTANCE)
+    net = load_motion_complete_net(device=dev)
+    fusion, state, tables, info_np, timings, counts = drive_path(
+        "main_path", dev, seq, sphere_config(), net, profile)
+    out = {
+        "phase": "main_path", "sphere_distance_m": DISTANCE, **timings,
+        "nodes": fusion.node_count, "model_points": fusion.model_point_count,
+        "voxels": int(tables.vox_points.shape[0]),
+        "valid_voxels": int(tables.vox_valid.sum()),
+        "launches": counts,
+    }
+    try:
+        med, motion, trans = check_tracking(fusion, state, info_np, centers,
+                                            counts)
+    finally:
+        emit(out)
+    emit({"phase": "main_path_tracking",
+          "median_node_translation": med.tolist(),
+          "node_translation_z_quantiles_10_50_90": np.quantile(
+              trans[:, 2], [0.1, 0.5, 0.9]).tolist(),
+          "sphere_motion": motion.tolist()})
+    return counts
+
+
+def phase_envelope_flow(dev, profile=False):
+    """The bricked envelope with PWC flow + MaskNet and K4 (see
+    envelope_config), 16 frames after the first on the textured sphere at
+    3 m. Also times flow_correspondences (PWC + lift + MaskNet) alone on
+    the last frame pair, for its share of the frame."""
+    import numpy as np
+    import torch
+
+    from occlusionfusion_tpu_torch.fusion.flow_correspondence import (
+        flow_correspondences,
+    )
+    from occlusionfusion_tpu_torch.fusion.fused_step import _rgbxyz_image
+    from occlusionfusion_tpu_torch.models.checkpoint import (
+        load_flow_nets,
+        load_motion_complete_net,
+    )
+
+    seq, centers = sphere_sequence(N_FRAMES + 1, IMG_H, IMG_W, RADIUS, STEP_Z,
+                                   DISTANCE, textured=True)
+    net = load_motion_complete_net(device=dev)
+    pwc, mask = load_flow_nets(device=dev)
+    fusion, state, tables, info_np, timings, counts = drive_path(
+        "envelope_flow", dev, seq, envelope_config(), net, profile,
+        flow_net=pwc, mask_net=mask)
+    filled = info_np[:, 5].astype(int).tolist()
+    n_bricks = int((fusion.brick_ids >= 0).sum())
+    out = {
+        "phase": "envelope_flow", "sphere_distance_m": DISTANCE, **timings,
+        "brick_size": fusion.brick_size, "active_bricks": n_bricks,
+        "max_bricks": ENVELOPE_MAX_BRICKS,
+        "voxel_slots": int(tables.vox_points.shape[0]),
+        "valid_voxels": int(tables.vox_valid.sum()),
+        "nodes": fusion.node_count, "model_points": fusion.model_point_count,
+        "flow_filled_per_frame": filled, "launches": counts,
+    }
+    try:
+        med, motion, _ = check_tracking(fusion, state, info_np, centers,
+                                        counts)
+        assert fusion.brick_size == 8, fusion.brick_size
+        assert 0 < n_bricks <= ENVELOPE_MAX_BRICKS, n_bricks
+        assert max(filled) > 0, "flow filled no point on any frame"
+    finally:
+        emit(out)
+
+    def depth_color(i):
+        f = seq.load(i)
+        return (torch.as_tensor(f.depth, device=dev),
+                torch.as_tensor(f.color, device=dev))
+
+    prev = _rgbxyz_image(*depth_color(N_FRAMES - 1), seq.intrinsics)
+    cur = _rgbxyz_image(*depth_color(N_FRAMES), seq.intrinsics)
+    with torch.no_grad():
+        flow_ms = cuda_ms(lambda: flow_correspondences(pwc, prev, cur, mask),
+                          3)
+    frame_ms = 1e3 / timings["frames_per_s_after_first"]
+    emit({"phase": "envelope_flow_tracking",
+          "median_node_translation": med.tolist(),
+          "sphere_motion": motion.tolist(),
+          "flow_correspondences_ms": flow_ms[0],
+          "flow_correspondences_ms_min_max": flow_ms[1:],
+          "frame_ms_after_first": frame_ms,
+          "flow_share_of_frame": flow_ms[0] / frame_ms})
+    return counts
 
 
 def phase_near(dev):
@@ -456,8 +638,10 @@ def phase_near(dev):
 
 
 def phase_parity(dev):
-    """The fused loop at a small size on the card (kernels) and on the
-    CPU (twins): per-frame info and node transforms must agree."""
+    """Both paths at a small size (tests/test_torch_fusion_slice.py's and
+    tests/test_torch_flow_slice.py's: 48^3, 128x128, 4 frames) on the card
+    (kernels) and on the CPU (twins): per-frame info and node transforms
+    must agree."""
     import numpy as np
 
     from occlusionfusion_tpu_torch.fusion.pipeline import (
@@ -466,39 +650,57 @@ def phase_parity(dev):
     )
     from occlusionfusion_tpu_torch.graph.edgraph import GraphConfig
     from occlusionfusion_tpu_torch.models.checkpoint import (
+        load_flow_nets,
         load_motion_complete_net,
     )
     from occlusionfusion_tpu_torch.solvers.gauss_newton import GNConfig
 
-    seq, _ = sphere_sequence(5, 128, 128, 0.1, 0.004)
-    cfg = FusionConfig(
+    small = dict(
         vol_dim=(48, 48, 48), voxel_size=0.008, node_coverage=0.04,
         max_nodes=256, max_points=2048, max_depth_diff=0.05,
         graph=GraphConfig(node_coverage=0.04, min_neighbors=2),
-        gn=GNConfig(iters=6, w_point=1.0, w_arap=10.0, w_motion=1.0),
     )
-    runs = {}
-    for d in (dev, "cpu"):
-        f = DynamicFusion(seq, cfg, device=d)
-        infos = f.run_fused(
-            motion_net=load_motion_complete_net(device=d)
-        )
-        runs[d] = (f, infos)
-    (fg, ig), (fc, ic) = runs[dev], runs["cpu"]
-    n = fc.node_count
-    assert fg.node_count == n
-    dt = float(np.abs(fg.warp.translations[:n].cpu().numpy()
-                      - fc.warp.translations[:n].numpy()).max())
-    dR = float(np.abs(fg.warp.rotations[:n].cpu().numpy()
-                      - fc.warp.rotations[:n].numpy()).max())
-    dconf = max(abs(a["mean_confidence"] - b["mean_confidence"])
-                for a, b in zip(ig, ic))
-    dcorr = max(abs(a["n_correspondences"] - b["n_correspondences"])
-                for a, b in zip(ig, ic))
-    emit({"phase": "parity", "nodes": n, "max_dt_m": dt, "max_dR": dR,
-          "max_dconf": dconf, "max_dcorr": dcorr})
-    assert dt <= 1e-4 and dR <= 1e-3 and dconf <= 0.015 and dcorr <= 2, (
-        dt, dR, dconf, dcorr)
+    gn = dict(iters=6, w_point=1.0, w_arap=10.0, w_motion=1.0)
+    cases = {
+        "main_path": (sphere_sequence(5, 128, 128, 0.1, 0.004)[0],
+                      FusionConfig(gn=GNConfig(**gn), **small), False),
+        "envelope_flow": (
+            sphere_sequence(5, 128, 128, 0.1, 0.004, textured=True)[0],
+            FusionConfig(gn=GNConfig(**gn), brick_size=8, max_bricks=256,
+                         use_flow=True, **small),
+            True),
+    }
+    for path, (seq, cfg, flow) in cases.items():
+        runs = {}
+        for d in (dev, "cpu"):
+            nets = {}
+            if flow:
+                nets = dict(zip(("flow_net", "mask_net"),
+                                load_flow_nets(device=d)))
+            f = DynamicFusion(seq, cfg, device=d, **nets)
+            infos = f.run_fused(
+                motion_net=load_motion_complete_net(device=d)
+            )
+            runs[d] = (f, infos)
+        (fg, ig), (fc, ic) = runs[dev], runs["cpu"]
+        n = fc.node_count
+        assert fg.node_count == n
+        dt = float(np.abs(fg.warp.translations[:n].cpu().numpy()
+                          - fc.warp.translations[:n].numpy()).max())
+        dR = float(np.abs(fg.warp.rotations[:n].cpu().numpy()
+                          - fc.warp.rotations[:n].numpy()).max())
+        dconf = max(abs(a["mean_confidence"] - b["mean_confidence"])
+                    for a, b in zip(ig, ic))
+        dcorr = max(abs(a["n_correspondences"] - b["n_correspondences"])
+                    for a, b in zip(ig, ic))
+        emit({"phase": "parity", "path": path, "nodes": n, "max_dt_m": dt,
+              "max_dR": dR, "max_dconf": dconf, "max_dcorr": dcorr,
+              "flow_filled_card": [i["n_flow_filled"] for i in ig],
+              "flow_filled_cpu": [i["n_flow_filled"] for i in ic]})
+        assert dt <= 1e-4 and dR <= 1e-3 and dconf <= 0.015 and dcorr <= 2, (
+            path, dt, dR, dconf, dcorr)
+        if flow:
+            assert sum(i["n_flow_filled"] for i in ig) > 0, "no flow fill"
 
 
 def main(argv) -> int:
@@ -534,9 +736,14 @@ def main(argv) -> int:
     rows = phase_kernels(dev)
     emit({"phase": "kernels", "s": time.perf_counter() - t})
 
+    profile = "--profile" in argv
     t = time.perf_counter()
-    counts, _ = phase_main_path(dev, profile="--profile" in argv)
+    phase_main_path(dev, profile)
     emit({"phase": "main_path_done", "s": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    counts = phase_envelope_flow(dev, profile)
+    emit({"phase": "envelope_flow_done", "s": time.perf_counter() - t})
 
     t = time.perf_counter()
     phase_near(dev)

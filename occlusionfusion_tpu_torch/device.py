@@ -41,7 +41,9 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC",
 ]
 
-launch_counts = {"knn": 0, "lbs_warp": 0, "point_term_blocks": 0}
+launch_counts = {
+    "knn": 0, "lbs_warp": 0, "point_term_blocks": 0, "arap_term_blocks": 0,
+}
 
 # what the last kernel_lib() call did: {"seconds": s, "cached": bool}
 last_build: dict = {}
@@ -62,6 +64,12 @@ _SIGNATURES = {
     "of_point_term_blocks": [
         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _F, _I, _I,
         _VP, _VP, _VP, _VP,
+    ],
+    # nodes, R, t, edges, wa, N, E,
+    # ii_out, ij_out, ji_out, jj_out, bi_out, bj_out, rsq_out, stream
+    "of_arap_term_blocks": [
+        _VP, _VP, _VP, _VP, _VP, _I, _I,
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
     ],
 }
 

@@ -2,15 +2,17 @@
 ``occlusionfusion_tpu/fusion/fused_step.py``).
 
 One frame: deform the model, projective correspondences and node
-visibility, per-node motion observations, motion completion, the dense
-Gauss-Newton warp solve, then the voxel LBS warp (kernel K2 on CUDA)
-and the TSDF integrate. The graph-dependent tables are device-resident
-constants between keyframes. Nothing in the step reads a value back to
-the host, so frames queue on the card back to back.
+visibility, optionally PWC flow correspondences weighted by MaskNet,
+per-node motion observations, motion completion, the dense Gauss-Newton
+warp solve, then the voxel LBS warp (kernel K2 on CUDA) and the TSDF
+integrate. The graph-dependent tables are device-resident constants
+between keyframes. Nothing in the step reads a value back to the host,
+so frames queue on the card back to back.
 
-Ported: ``solver="gn_dense"`` with projective correspondences and the
-motion GNN; ``FusionConfig`` (``fusion/pipeline.py``) rejects the
-settings of the branches not ported.
+Ported: ``solver="gn_dense"`` with projective correspondences, the
+motion GNN and flow in the JAX defaults' mode (fill, dense lift, MaskNet
+weights at full resolution); ``FusionConfig`` (``fusion/pipeline.py``)
+rejects the settings of the branches not ported.
 """
 
 from __future__ import annotations
@@ -31,7 +33,15 @@ from occlusionfusion_tpu_torch.fusion.motion_runner import (
     _unpack_pyramid,
     motion_step,
 )
-from occlusionfusion_tpu_torch.geometry.camera import Intrinsics
+from occlusionfusion_tpu_torch.fusion.flow_correspondence import (
+    flow_correspondences,
+    sample_weight_field,
+)
+from occlusionfusion_tpu_torch.geometry.camera import (
+    Intrinsics,
+    backproject_depth,
+    bilinear_sample,
+)
 from occlusionfusion_tpu_torch.ops.lbs import lbs_warp
 from occlusionfusion_tpu_torch.solvers.gauss_newton import GNConfig, GNProblem
 from occlusionfusion_tpu_torch.solvers.gauss_newton_dense import solve_dense
@@ -62,6 +72,14 @@ class FusionStepState(NamedTuple):
     rotations: torch.Tensor  # [N, 3, 3] canonical -> current
     translations: torch.Tensor  # [N, 3]
     motion: MotionRunnerState
+    # the previous frame's RGB-XYZ image [6, H, W], the flow source (None
+    # unless the step runs flow)
+    prev_rgbxyz: torch.Tensor = None
+
+
+# MaskNet weight a flow correspondence must exceed (the JAX package's
+# default flow_mask_threshold)
+FLOW_MASK_THRESHOLD = 0.35
 
 
 class FusedStepConfig(NamedTuple):
@@ -71,6 +89,17 @@ class FusedStepConfig(NamedTuple):
     use_motion_model: bool = True
     # pyramid padding buckets; must equal level_sizes_for(node cap)
     motion_levels: tuple = LEVEL_SIZES
+    # PWC flow + MaskNet correspondences, "fill" mode: flow targets only
+    # for points without a projective target, where the sampled MaskNet
+    # weight exceeds FLOW_MASK_THRESHOLD
+    use_flow: bool = False
+
+
+def _rgbxyz_image(depth, color, intr: Intrinsics):
+    """[6, H, W]: RGB in 0..1, then the camera-space point image (the
+    PWC/MaskNet input)."""
+    xyz = backproject_depth(depth, intr)
+    return torch.cat([color.permute(2, 0, 1) / 255.0, xyz.permute(2, 0, 1)])
 
 
 @torch.no_grad()
@@ -82,9 +111,14 @@ def fused_register_frame(
     depth: torch.Tensor,  # [H, W]
     color: torch.Tensor,  # [H, W, 3]
     intr: Intrinsics,
+    flow_net=None,
+    mask_net=None,
 ):
-    """One frame. Returns (state, info [5] f32: final_loss,
-    n_correspondences, n_visible_nodes, mean_conf, solve_valid)."""
+    """One frame. Returns (state, info [6] f32: final_loss,
+    n_correspondences, n_visible_nodes, mean_conf, solve_valid,
+    n_flow_filled). With ``config.use_flow`` the PWC ``flow_net`` and
+    ``mask_net`` are required and ``state.prev_rgbxyz`` holds the
+    previous frame."""
     warp = W.WarpFieldState(
         node_positions=tables.nodes,
         node_valid=tables.node_valid,
@@ -109,6 +143,37 @@ def fused_register_frame(
     )
     node_visible = node_visible & tables.node_valid
     corr_weight = corr_valid.to(torch.float32)
+
+    # 2b. flow correspondences: PWC prev -> current lifted to per-pixel
+    # targets, sampled at the deformed points' projections, MaskNet-gated
+    # and -weighted; they fill only points without a projective target
+    cur_rgbxyz = state.prev_rgbxyz
+    flow_ok = torch.zeros_like(corr_valid)
+    if config.use_flow:
+        cur_rgbxyz = _rgbxyz_image(depth, color, intr)
+        z = torch.clamp(deformed_pts[:, 2], min=1e-6)
+        u = deformed_pts[:, 0] / z * intr.fx + intr.cx
+        v = deformed_pts[:, 1] / z * intr.fy + intr.cy
+        h_im, w_im = depth.shape
+        inb = (u >= 0) & (u <= w_im - 1) & (v >= 0) & (v <= h_im - 1)
+        _, flow_targets, flow_valid, flow_weights = flow_correspondences(
+            flow_net, state.prev_rgbxyz, cur_rgbxyz, mask_net
+        )
+        uv = torch.stack([u, v], dim=-1)
+        sampled = bilinear_sample(flow_targets, uv)
+        vsamp = bilinear_sample(
+            flow_valid[..., None].to(torch.float32), uv
+        )[:, 0]
+        wsamp = sample_weight_field(flow_weights, u, v)
+        flow_ok = (
+            inb & (vsamp > 0.5) & (deformed_pts[:, 2] > 0)
+            & (wsamp > FLOW_MASK_THRESHOLD) & ~corr_valid
+        )
+        corr_weight = torch.where(
+            flow_ok, torch.clamp(wsamp, 0.0, 1.0), corr_weight
+        )
+        targets = torch.where(flow_ok[:, None], sampled, targets)
+        corr_valid = corr_valid | flow_ok
 
     # 3. per-node motion observations
     node_motion, node_observed = node_motion_observations(
@@ -174,11 +239,13 @@ def fused_register_frame(
             torch.sum(tables.node_valid), min=1
         ).to(torch.float32),
         result.valid.to(torch.float32),
+        torch.sum(flow_ok).to(torch.float32),
     ])
     new_state = FusionStepState(
         tsdf=new_tsdf,
         rotations=result.rotations,
         translations=result.translations,
         motion=motion_state,
+        prev_rgbxyz=cur_rgbxyz,
     )
     return new_state, info

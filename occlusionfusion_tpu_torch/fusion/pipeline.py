@@ -1,17 +1,18 @@
 """DynamicFusion orchestrator, fused path (port of
 ``occlusionfusion_tpu/fusion/pipeline.py``).
 
-``initialize`` integrates the first frame into a dense volume, extracts
-the mesh and builds the deformation graph on the host, and skins the
-model points and every voxel (kernel K1 on CUDA). ``build_fused`` packs
-the device-resident tables and state; ``register_frame_fused`` runs one
-fused step; ``run_fused`` drives a whole sequence, reading the per-frame
-info back once at its end.
+``initialize`` integrates the first frame into a dense or bricked
+volume, extracts the mesh and builds the deformation graph on the host,
+and skins the model points and every voxel (kernel K1 on CUDA).
+``build_fused`` packs the device-resident tables and state;
+``register_frame_fused`` runs one fused step; ``run_fused`` drives a
+whole sequence, reading the per-frame info back once at its end.
 
-Ported: the dense volume (``brick_size=0``) with ``solver="gn_dense"``,
-projective correspondences and the motion GNN. Bricked volumes, graph
-growth, keyframes, the stepwise N-ICP loop and the learned
-correspondence sources raise ``NotImplementedError``.
+Ported: the dense and the bricked volume with ``solver="gn_dense"``,
+projective correspondences, the motion GNN, and PWC flow with MaskNet
+weights in the JAX defaults' mode (fill, dense lift, full resolution).
+Graph growth (and with it brick refresh), keyframes, the stepwise N-ICP
+loop, Lepard and the other flow modes raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,12 +23,14 @@ import numpy as np
 import torch
 
 from occlusionfusion_tpu_torch.device import resolve_device
+from occlusionfusion_tpu_torch.fusion import bricks as BR
 from occlusionfusion_tpu_torch.fusion import tsdf as T
 from occlusionfusion_tpu_torch.fusion import warpfield as W
 from occlusionfusion_tpu_torch.fusion.fused_step import (
     FusedStepConfig,
     FusionStepState,
     FusionTables,
+    _rgbxyz_image,
     fused_register_frame,
 )
 from occlusionfusion_tpu_torch.fusion.frame_loader import Frame
@@ -44,6 +47,10 @@ from occlusionfusion_tpu_torch.graph.edgraph import (
 )
 from occlusionfusion_tpu_torch.solvers.gauss_newton import GNConfig
 
+# settings of the JAX FusionConfig that must stay off: not ported
+UNPORTED = ("growth_interval", "keyframe_interval", "use_lepard",
+            "min_cluster_matches")
+
 
 @dataclass
 class FusionConfig:
@@ -58,11 +65,18 @@ class FusionConfig:
     gn: GNConfig = field(default_factory=lambda: GNConfig(iters=6))
     use_motion_model: bool = True
     solver: str = "gn_dense"
-    # 0 = dense grid, the only volume ported
-    brick_size: int = 0
+    # 0 = dense grid; > 0 = brick edge in voxels; -1 (the JAX default) =
+    # auto: bricks of 8 at >= 128^3 virtual voxels, dense below. Bricks
+    # near the first frame's surface (bricks.active_bricks_from_depth)
+    # are allocated in max_bricks static slots.
+    brick_size: int = -1
+    max_bricks: int = 2048
+    # PWC flow + MaskNet correspondences (flow_net and mask_net given to
+    # DynamicFusion) fill points without a projective target: the JAX
+    # defaults (flow_mode "fill", dense lift, full resolution, f32)
+    use_flow: bool = False
     growth_interval: int = 0
     keyframe_interval: int = 0
-    use_flow: bool = False
     use_lepard: bool = False
     min_cluster_matches: float = 0.0
 
@@ -72,19 +86,26 @@ class FusionConfig:
             raise NotImplementedError(
                 f"solver={self.solver!r} is not ported (gn_dense only)"
             )
-        for name in ("brick_size", "growth_interval", "keyframe_interval",
-                     "use_flow", "use_lepard", "min_cluster_matches"):
+        for name in UNPORTED:
             if getattr(self, name):
                 raise NotImplementedError(f"{name}={getattr(self, name)!r} "
                                           "is not ported")
 
 
 class DynamicFusion:
-    def __init__(self, sequence, config: FusionConfig, device=None):
+    def __init__(self, sequence, config: FusionConfig, device=None,
+                 flow_net=None, mask_net=None):
+        """``flow_net``/``mask_net``: PWC-Net and MaskNet
+        (``models.checkpoint.load_flow_nets``), required by
+        ``config.use_flow``."""
         self.seq = sequence
         self.config = config
         self.intr = sequence.intrinsics
         self.device = resolve_device(device)
+        if config.use_flow and (flow_net is None or mask_net is None):
+            raise ValueError("use_flow requires flow_net and mask_net")
+        self.flow_net = flow_net
+        self.mask_net = mask_net
 
     def _t(self, x, dtype=torch.float32):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
@@ -94,22 +115,47 @@ class DynamicFusion:
         """Integrate the first frame, extract the mesh, build the graph,
         skin the model points and the voxels."""
         cfg = self.config
+        trunc = cfg.trunc_margin_vox * cfg.voxel_size
         self.tsdf_config = T.TSDFConfig(
             vol_dim=tuple(cfg.vol_dim),
             voxel_size=cfg.voxel_size,
-            trunc_margin=cfg.trunc_margin_vox * cfg.voxel_size,
+            trunc_margin=trunc,
         )
         origin = T.volume_bounds_from_frame(
             frame.depth, self.intr, cfg.vol_dim, cfg.voxel_size
         )
-        self.tsdf = T.create_volume(self.tsdf_config, origin, self.device)
-        self.vox_points = T.voxel_world_points(
-            self.tsdf_config, self.tsdf.origin
-        )
+        self.brick_size = cfg.brick_size
+        if self.brick_size < 0:
+            self.brick_size = 8 if int(np.prod(cfg.vol_dim)) >= 128**3 else 0
+        if self.brick_size:
+            self.brick_grid = BR.BrickGrid(
+                vol_dim=tuple(cfg.vol_dim), voxel_size=cfg.voxel_size,
+                brick=self.brick_size, max_bricks=cfg.max_bricks,
+            )
+            ids = BR.active_bricks_from_depth(
+                self.brick_grid, np.asarray(origin), frame.depth, self.intr,
+                trunc,
+            )
+            self.brick_ids = BR.pack_brick_ids(self.brick_grid, ids)
+            self.tsdf = BR.create_brick_volume(self.brick_grid, origin,
+                                               self.device)
+            vox_np, bvalid = BR.brick_voxel_points(
+                self.brick_grid, np.asarray(origin), self.brick_ids
+            )
+            self.vox_points = self._t(vox_np)
+            self.brick_valid = self._t(bvalid, torch.bool)
+        else:
+            self.brick_grid = None
+            self.tsdf = T.create_volume(self.tsdf_config, origin, self.device)
+            self.vox_points = T.voxel_world_points(
+                self.tsdf_config, self.tsdf.origin
+            )
+            self.brick_valid = torch.ones(
+                self.vox_points.shape[0], dtype=torch.bool,
+                device=self.device,
+            )
         self.tsdf = T.integrate(
-            self.tsdf_config, self.tsdf, self.vox_points,
-            torch.ones(self.vox_points.shape[0], dtype=torch.bool,
-                       device=self.device),
+            self.tsdf_config, self.tsdf, self.vox_points, self.brick_valid,
             self._t(frame.depth), self._t(frame.color), self.intr,
         )
 
@@ -135,14 +181,25 @@ class DynamicFusion:
         self.warp = W.create_warpfield(self.nodes, self.node_valid)
 
         self._set_canonical_points(verts)
-        self.vox_table = W.skin(self.warp, self.vox_points, cfg.node_coverage)
+        table = W.skin(self.warp, self.vox_points, cfg.node_coverage)
+        # free brick slots stay out of the warp and the integrate
+        self.vox_table = table._replace(valid=table.valid & self.brick_valid)
+        self.prev_frame = frame
 
     def _extract_mesh_host(self):
-        tsdf_np = self.tsdf.tsdf.cpu().numpy()
-        mask = T.truncated_region_mask(self.tsdf.tsdf, self.tsdf.weight)
-        verts_vox, faces = native.marching_cubes(
-            tsdf_np, mask.cpu().numpy().astype(np.uint8), iso=0.0
+        if self.brick_grid is not None:
+            tsdf_np, w_np = BR.scatter_to_dense(
+                self.brick_grid, self.brick_ids, self.tsdf.tsdf.cpu().numpy(),
+                self.tsdf.weight.cpu().numpy(),
+            )
+            tsdf, weight = torch.from_numpy(tsdf_np), torch.from_numpy(w_np)
+        else:
+            tsdf, weight = self.tsdf.tsdf, self.tsdf.weight
+            tsdf_np = tsdf.cpu().numpy()
+        mask = T.truncated_region_mask(tsdf, weight).cpu().numpy().astype(
+            np.uint8
         )
+        verts_vox, faces = native.marching_cubes(tsdf_np, mask, iso=0.0)
         verts = (
             verts_vox * self.tsdf_config.voxel_size
             + self.tsdf.origin.cpu().numpy()[None, :]
@@ -205,11 +262,18 @@ class DynamicFusion:
             pyramid_ints=self._t(ints, torch.int32),
             n_nodes=self._t(self.node_count, torch.int32),
         )
+        prev_rgbxyz = None
+        if cfg.use_flow:
+            prev_rgbxyz = _rgbxyz_image(
+                self._t(self.prev_frame.depth), self._t(self.prev_frame.color),
+                self.intr,
+            )
         state = FusionStepState(
             tsdf=T.TSDFState(*(x.clone() for x in self.tsdf)),
             rotations=self.warp.rotations.clone(),
             translations=self.warp.translations.clone(),
             motion=init_state(cap, self.device),
+            prev_rgbxyz=prev_rgbxyz,
         )
         step_config = FusedStepConfig(
             tsdf=self.tsdf_config,
@@ -217,6 +281,7 @@ class DynamicFusion:
             max_depth_diff=cfg.max_depth_diff,
             use_motion_model=use_motion,
             motion_levels=motion_levels,
+            use_flow=cfg.use_flow,
         )
         return step_config, state, tables
 
@@ -225,7 +290,7 @@ class DynamicFusion:
         """One fused step; the caller owns the state."""
         return fused_register_frame(
             step_config, state, tables, motion_net, self._t(frame.depth),
-            self._t(frame.color), self.intr,
+            self._t(frame.color), self.intr, self.flow_net, self.mask_net,
         )
 
     def run_fused(self, motion_net=None):
@@ -250,6 +315,7 @@ class DynamicFusion:
             "n_visible_nodes": int(row[2]),
             "mean_confidence": float(row[3]),
             "solve_valid": bool(row[4] > 0.5),
+            "n_flow_filled": int(row[5]),
         } for i, row in enumerate(out_np, start=1)]
         self.adopt_fused_state(state)
         return infos

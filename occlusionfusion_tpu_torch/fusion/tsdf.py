@@ -114,8 +114,11 @@ def integrate(
     color_im: torch.Tensor,  # [H, W, 3] 0..255
     intr: Intrinsics,
 ) -> TSDFState:
-    """Warp-aware TSDF integration over the whole volume (new tensors;
-    the input state is not modified)."""
+    """Warp-aware TSDF integration over every voxel of the volume (new
+    tensors; the input state is not modified). The state may be dense
+    [X, Y, Z] or bricked [MB, B, B, B]; ``warped_points`` and
+    ``warp_valid`` follow it raveled in C order (free brick slots
+    invalid)."""
     trunc = config.trunc_margin
     H, W = depth_im.shape
     z, px, py, in_frustum = _pixel_of(warped_points, intr, H, W)

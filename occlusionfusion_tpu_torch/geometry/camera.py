@@ -38,3 +38,22 @@ def project_points(points: torch.Tensor, intr: Intrinsics, eps: float = 1e-8):
     u = points[..., 0] / zs * intr.fx + intr.cx
     v = points[..., 1] / zs * intr.fy + intr.cy
     return torch.stack([u, v], dim=-1), valid
+
+
+def bilinear_sample(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Bilinearly sample img [H, W, C] at uv [..., 2] (u = x, v = y) pixel
+    coordinates. Out-of-range samples clamp to the border (callers mask
+    separately); the upper clamp is W - 1.000001, which rounds to the
+    tensor's f32 exactly as the JAX package's clip does."""
+    H, W = img.shape[:2]
+    u = torch.clamp(uv[..., 0], 0.0, W - 1.000001)
+    v = torch.clamp(uv[..., 1], 0.0, H - 1.000001)
+    u0 = torch.floor(u).long()
+    v0 = torch.floor(v).long()
+    u1 = torch.clamp(u0 + 1, max=W - 1)
+    v1 = torch.clamp(v0 + 1, max=H - 1)
+    fu = (u - u0.to(u.dtype))[..., None]
+    fv = (v - v0.to(v.dtype))[..., None]
+    top = img[v0, u0] * (1 - fu) + img[v0, u1] * fu
+    bot = img[v1, u0] * (1 - fu) + img[v1, u1] * fu
+    return top * (1 - fv) + bot * fv

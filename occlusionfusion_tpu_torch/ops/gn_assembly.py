@@ -1,5 +1,6 @@
-"""Gauss-Newton point-term block assembly (port of the point term of
-``occlusionfusion_tpu/ops/gn_assembly.py``).
+"""Gauss-Newton block assembly (port of
+``occlusionfusion_tpu/ops/gn_assembly.py``): the point term and the ARAP
+edge term.
 
 ``point_term_blocks`` launches kernel K3 (``csrc/gn_assembly.cu``,
 replacing the TPU kernel ``point_term_blocks_pallas``) on CUDA tensors
@@ -8,11 +9,15 @@ follow ``_assemble_blocks(assembly="blocks")`` of the JAX package, not
 the TPU kernel, which gates the blend weights by the point weight and so
 gets the residual wrong for fractional weights: the warp blends with the
 raw skinning weights, the jacobian with the gated ones, and the residual
-carries the point weight once.
+carries the point weight once. Returns (blk [P, 16, 6, 6], b [P, 4, 6],
+rsq [P]); the 16 anchor pairs are in (k, l) row-major order, the order
+of the caller's scatter segments.
 
-Returns (blk [P, 16, 6, 6], b [P, 4, 6], rsq [P]); the 16 anchor pairs
-are in (k, l) row-major order, the order of the caller's scatter
-segments.
+``arap_term_blocks`` launches kernel K4 (``csrc/arap_term.cu``,
+replacing ``arap_term_blocks_pallas``) on CUDA tensors and runs the
+plain twin ``arap_term_blocks_torch`` (the JAX package's XLA ARAP
+branch) on CPU tensors. Returns K4's layout: ii [N, 6, 6] summed over
+edges, ij/ji/jj [N, E, 6, 6], b_i [N, 6], b_j [N, E, 6], rsq [N].
 """
 
 from __future__ import annotations
@@ -91,3 +96,65 @@ def point_term_blocks(points, targets, point_valid, anchors, weights, nodes,
     return point_term_blocks_torch(
         points, targets, point_valid, anchors, weights, nodes, R, t, sw
     )
+
+
+def arap_term_blocks_torch(nodes, R, t, edges, wa):
+    """Plain twin of K4 (the XLA ARAP branch of ``_assemble_blocks``).
+    ``edges`` [N, E] are clamped >= 0 and ``wa`` [N, E] is
+    sqrt(w_arap * edge weight), 0 on invalid edges."""
+    N, E = edges.shape
+    e = edges.long()
+    g_i = nodes[:, None]
+    g_j = nodes[e]
+    rot = torch.einsum("nij,nkj->nki", R, g_j - g_i)
+    r = wa[..., None] * (rot + g_i + t[:, None] - g_j - t[e])
+    eye = torch.eye(3, dtype=nodes.dtype, device=nodes.device).expand(
+        N, E, 3, 3
+    )
+    Ji = torch.cat([-hat(rot), eye], dim=-1) * wa[..., None, None]
+    Jj = torch.cat([torch.zeros_like(eye), -eye], dim=-1) * wa[..., None, None]
+    ii = torch.sum(torch.einsum("neai,neaj->neij", Ji, Ji), dim=1)
+    ij = torch.einsum("neai,neaj->neij", Ji, Jj)
+    jj = torch.einsum("neai,neaj->neij", Jj, Jj)
+    b_i = torch.sum(torch.einsum("neai,nea->nei", Ji, r), dim=1)
+    b_j = torch.einsum("neai,nea->nei", Jj, r)
+    rsq = torch.sum(r * r, dim=(1, 2))
+    return ii, ij, ij.transpose(2, 3), jj, b_i, b_j, rsq
+
+
+def arap_term_blocks_cuda(nodes, R, t, edges, wa):
+    """Kernel K4. Bound on the H100 by writing its blocks (3.8 KB per
+    node) and in practice by its launch; see the note in the source."""
+    N, E = edges.shape
+    f32 = torch.float32
+    D.check_cuda_tensor("nodes", nodes, f32, (N, 3))
+    D.check_cuda_tensor("R", R, f32, (N, 3, 3))
+    D.check_cuda_tensor("t", t, f32, (N, 3))
+    D.check_cuda_tensor("edges", edges, torch.int32, (N, E))
+    D.check_cuda_tensor("wa", wa, f32, (N, E))
+    dev = nodes.device
+    ii = torch.empty((N, 6, 6), dtype=f32, device=dev)
+    ij, ji, jj = (torch.empty((N, E, 6, 6), dtype=f32, device=dev)
+                  for _ in range(3))
+    b_i = torch.empty((N, 6), dtype=f32, device=dev)
+    b_j = torch.empty((N, E, 6), dtype=f32, device=dev)
+    rsq = torch.empty((N,), dtype=f32, device=dev)
+    if N == 0:
+        return ii, ij, ji, jj, b_i, b_j, rsq
+    D.launch(
+        "of_arap_term_blocks", nodes.data_ptr(), R.data_ptr(), t.data_ptr(),
+        edges.data_ptr(), wa.data_ptr(), N, E, ii.data_ptr(), ij.data_ptr(),
+        ji.data_ptr(), jj.data_ptr(), b_i.data_ptr(), b_j.data_ptr(),
+        rsq.data_ptr(),
+    )
+    D.launch_counts["arap_term_blocks"] += 1
+    return ii, ij, ji, jj, b_i, b_j, rsq
+
+
+def arap_term_blocks(nodes, R, t, edges, wa):
+    """K4 on CUDA tensors, the twin on CPU tensors."""
+    if nodes.is_cuda:
+        return arap_term_blocks_cuda(
+            *(x.contiguous() for x in (nodes, R, t, edges.to(torch.int32), wa))
+        )
+    return arap_term_blocks_torch(nodes, R, t, edges, wa)

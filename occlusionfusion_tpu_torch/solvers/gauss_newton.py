@@ -2,7 +2,9 @@
 ``occlusionfusion_tpu/solvers/gauss_newton.py`` the dense solver uses).
 
 Only the isotropic point-to-point data term (the JAX ``point3d``) and the
-Cholesky linear solver are ported.
+Cholesky linear solver are ported. The normal equations are always
+assembled by blocks: kernels K3 and K4 on CUDA tensors (the JAX
+``assembly="blocks_pallas_full"``), their twins on CPU tensors.
 """
 
 from __future__ import annotations

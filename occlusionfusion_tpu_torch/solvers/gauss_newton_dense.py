@@ -3,10 +3,10 @@
 Cholesky only).
 
 Per iteration: the point-term jacobian blocks (kernel K3 on CUDA, its
-twin on the CPU), the ARAP blocks, and one segment-sum of all pair
-blocks into the [N*N, 36] block table; the motion prior adds to the
-translation diagonal; the damped system is solved by Cholesky and the
-rotations retract as R <- exp(dw) R.
+twin on the CPU), the ARAP blocks (kernel K4 on CUDA, its twin on the
+CPU), and one segment-sum of all pair blocks into the [N*N, 36] block
+table; the motion prior adds to the translation diagonal; the damped
+system is solved by Cholesky and the rotations retract as R <- exp(dw) R.
 
 Linearization at the current estimate (dw = 0):
   point residual  r_p = sum_k w_k (R_k (x_p - g_k) + g_k + t_k) - y_p
@@ -21,8 +21,11 @@ import math
 import torch
 
 from occlusionfusion_tpu_torch.geometry.edwarp import ed_warp
-from occlusionfusion_tpu_torch.geometry.so3 import hat, so3_exp
-from occlusionfusion_tpu_torch.ops.gn_assembly import point_term_blocks
+from occlusionfusion_tpu_torch.geometry.so3 import so3_exp
+from occlusionfusion_tpu_torch.ops.gn_assembly import (
+    arap_term_blocks,
+    point_term_blocks,
+)
 from occlusionfusion_tpu_torch.ops.segment_ops import segment_sum
 from occlusionfusion_tpu_torch.solvers.gauss_newton import (
     GNConfig,
@@ -61,28 +64,16 @@ def _assemble_blocks(problem: GNProblem, config: GNConfig, R, t):
     sq = torch.sum(rsq)
     a = problem.point_anchors.long()
 
-    # ARAP term (plain tensor code, as the JAX package's default path)
-    E_k = problem.edges.shape[1]
-    e = torch.clamp(problem.edges, min=0).long()
-    ew = torch.where(
+    # ARAP term: kernel K4 on CUDA tensors, its twin on CPU tensors
+    e = torch.clamp(problem.edges, min=0)
+    wa = torch.sqrt(float(config.w_arap) * torch.where(
         problem.edges >= 0, problem.edge_weights,
         torch.zeros_like(problem.edge_weights),
+    ))
+    ii, ij, ji, jj, b_arap_i, b_arap_j, rsq_a = arap_term_blocks(
+        problem.nodes, R, t, e, wa
     )
-    wa = torch.sqrt(float(config.w_arap) * ew)
-    g_i = problem.nodes[:, None]
-    g_j = problem.nodes[e]
-    rot = torch.einsum("nij,nkj->nki", R, g_j - g_i)
-    r_arap = wa[..., None] * (rot + g_i + t[:, None] - g_j - t[e])
-    eye = torch.eye(3, dtype=torch.float32, device=dev).expand(n, E_k, 3, 3)
-    Ji = torch.cat([-hat(rot), eye], dim=-1) * wa[..., None, None]
-    Jj = torch.cat([torch.zeros_like(eye), -eye], dim=-1) * wa[..., None, None]
-    ii = torch.sum(torch.einsum("neai,neaj->neij", Ji, Ji), dim=1)
-    jj = torch.einsum("neai,neaj->neij", Jj, Jj)
-    ij = torch.einsum("neai,neaj->neij", Ji, Jj)
-    ji = ij.transpose(2, 3)
-    b_arap_j = torch.einsum("neai,nea->nei", Jj, r_arap)
-    b_arap_i = torch.sum(torch.einsum("neai,nea->nei", Ji, r_arap), dim=1)
-    sq = sq + torch.sum(r_arap * r_arap)
+    sq = sq + torch.sum(rsq_a)
 
     # one segment-sum of every pair block into the [N*N, 36] table
     all_blocks = torch.cat([
@@ -95,7 +86,7 @@ def _assemble_blocks(problem: GNProblem, config: GNConfig, R, t):
     M_blocks.index_add_(0, diag, ii.reshape(-1, 36))
     b_nodes = segment_sum(
         torch.cat([b_pt.reshape(-1, 6), b_arap_j.reshape(-1, 6)]),
-        torch.cat([a.reshape(-1), e.reshape(-1)]), n,
+        torch.cat([a.reshape(-1), e.reshape(-1).long()]), n,
     ) + b_arap_i
 
     if config.w_motion:

@@ -50,3 +50,29 @@ def assert_knn_equivalent(d2_a, idx_a, d2_b, idx_b, queries, refs, atol):
         for idx, d2 in ((idx_a[row], d2_b[row]), (idx_b[row], d2_a[row])):
             true = np.sum((np.asarray(refs)[idx] - q) ** 2, axis=1)
             np.testing.assert_allclose(np.sort(true), d2, atol=10 * atol)
+
+
+def textured_sphere_frames(centers, h, w, intr, r):
+    """(depths, colors) of a sphere at each centre, ray-cast in closed form
+    as in test_fusion_e2e.sphere_depth, with a smooth procedural RGB
+    texture fixed to its surface (a function of the surface normal), so
+    that optical flow has something to follow. Background depth 0, grey."""
+    v, u = np.mgrid[0:h, 0:w].astype(np.float32)
+    d = np.stack([(u - float(intr.cx)) / float(intr.fx),
+                  (v - float(intr.cy)) / float(intr.fy), np.ones_like(u)], -1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    depths, colors = [], []
+    for c in centers:
+        c = np.asarray(c, np.float32)
+        b = d @ c
+        disc = b * b - (c @ c - r * r)
+        t = b - np.sqrt(np.maximum(disc, 0))
+        hit = (disc > 0) & (t > 0)
+        depths.append(np.where(hit, t * d[..., 2], 0.0).astype(np.float32))
+        n = (t[..., None] * d - c) / r
+        tex = np.stack([np.sin(12 * n[..., 0] + 3 * n[..., 1]),
+                        np.sin(10 * n[..., 1] - 5 * n[..., 2]),
+                        np.sin(9 * n[..., 2] + 7 * n[..., 0])], -1)
+        colors.append(np.where(hit[..., None], 128 + 100 * tex, 128.0)
+                      .astype(np.float32))
+    return depths, colors
