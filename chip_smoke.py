@@ -3,6 +3,7 @@
 NVIDIA card.
 
     python3 chip_smoke.py [--ptxas] [--profile]
+    python3 chip_smoke.py [--ptxas] --gn-compare TREE [TREE ...]
 
 ``--ptxas`` prints each kernel's registers and spills; ``--profile``
 traces frames 2-16 of the paths `main_path` and `envelope_flow` with
@@ -16,29 +17,42 @@ Phases, each printing one JSON line with its wall seconds:
   2. build: nvcc builds the port's kernels (csrc/*.cu) into one library;
   3. kernels: each hand-written kernel against its plain PyTorch twin on
      the card, at the shapes the main path gives it, with its time, the
-     twin's time and the least time the card could take (bound);
+     twin's time and the least time the card could take (bound); K3' and
+     K4' add into the dense system (M, b, sq) and are held to their
+     accumulating twins on random inputs here;
   4. main path: DynamicFusion.initialize + build_fused, then 16 frames of
      the fused loop (dense Gauss-Newton + motion GNN) on an analytic
      deforming sphere at 128^3 voxels (dense) / 448x640 / 512 nodes /
-     8192 points, the sphere at 3 m; the sphere must be tracked and K1-K4
-     must have been launched by this phase, K4 four times per frame;
-  5. envelope_flow: the same sphere, textured, through the reference
+     8192 points, the sphere at 3 m; the sphere must be tracked and K1,
+     K2, K3', K4' must have been launched by this phase, K3' and K4' four
+     times per frame; the GN input of frame 8 is kept;
+  5. gn_path: K3' and K4' against their twins again on that input, where
+     the anchors share pairs as the real surface makes them, with their
+     bounds for it, and `_assemble_blocks` timed on it (assembly_ms);
+  6. envelope_flow: the same sphere, textured, through the reference
      envelope of bench.py: a bricked 128^3 volume (bricks of 8, 1024
      slots), PWC flow + MaskNet (checkpoints/flow.npz) filling points
      without a projective target, and the motion GNN; it must track,
-     flow must fill points, and K1-K4 must have been launched, K4 four
-     times per frame;
-  6. near: the main path's settings with the sphere at 1 m, at half the
+     flow must fill points, and all four kernels must have been
+     launched, K3' and K4' four times per frame;
+  7. near: the main path's settings with the sphere at 1 m, at half the
      image, where the reference algorithm overshoots the motion; the card
      must reproduce the JAX package's result (NEAR_REFERENCE_Z);
-  7. parity: both paths at a small size on the card (kernels) and on the
+  8. parity: both paths at a small size on the card (kernels) and on the
      CPU (twins) must agree.
-Then one JSON line with the kernel table (launches counted in
-envelope_flow; both paths run all four kernels), the card's name and power
-limit, and as the last line {"ok": true, "device": {...}}. Any failed
-check raises and exits nonzero. Without a CUDA device, or without the
-port's package beside this file, it exits nonzero and prints no result.
-It imports nothing of JAX or of the JAX package.
+Then one JSON line with the kernel table (K1 and K2 on the phase-3
+inputs, K3' and K4' on the main path's; launches counted in
+envelope_flow; both paths run all four kernels), the card's name and
+power limit, and as the last line {"ok": true, "device": {...}}. Any
+failed check raises and exits nonzero. Without a CUDA device, or without
+the port's package beside this file, it exits nonzero and prints no
+result. It imports nothing of JAX or of the JAX package.
+
+``--gn-compare`` runs, for each TREE in the order given and each in its
+own process, the main path to frame 8 with that tree's package and then
+times and traces one Gauss-Newton solve on its input (gn_profile_tree):
+the order parent, change, change, parent compares two commits on one
+card.
 """
 
 from __future__ import annotations
@@ -85,6 +99,7 @@ SEED = 0
 PATH_KERNELS = ("knn", "lbs_warp", "point_term_blocks", "arap_term_blocks")
 ENVELOPE_MAX_BRICKS = 1024  # bench.py's BENCH_MAX_BRICKS for the envelope
 GN_ITERS = 4
+TAP_FRAME = 8  # the main-path frame whose GN input the kernel checks reuse
 
 
 def emit(obj):
@@ -160,6 +175,30 @@ def cuda_ms(fn, reps: int, trials: int = 5):
     return times[len(times) // 2], times[0], times[-1]
 
 
+def graph_ms(fn, reps: int, trials: int = 5):
+    """Device milliseconds per call with no host time between calls:
+    ``reps`` calls captured once into a CUDA graph (after one warm-up
+    call), the graph replayed ``trials`` times (CUDA events, after one
+    warm-up replay). Returns the median trial and the fastest and
+    slowest ones, per call. For functions whose host work (the
+    wrappers' checks and launch) outlasts their device work, which
+    ``cuda_ms`` then measures instead."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    med, lo, hi = cuda_ms(graph.replay, 1, trials)
+    del graph
+    return med / reps, lo / reps, hi / reps
+
+
 def bound_ms(n_bytes: float, n_flops: float):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_flops / PEAK_F32_FLOP_PER_S * 1e3
@@ -172,7 +211,7 @@ def phase_kernels(dev):
 
     from occlusionfusion_tpu_torch.fusion.warpfield import WarpFieldState
     from occlusionfusion_tpu_torch.geometry.so3 import so3_exp
-    from occlusionfusion_tpu_torch.ops import gn_assembly, knn, lbs
+    from occlusionfusion_tpu_torch.ops import knn, lbs
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -254,109 +293,119 @@ def phase_kernels(dev):
           "ms": ms, "ms_min": ms_lo, "ms_max": ms_hi, "plain_ms": plain,
           "bound_ms": b})
 
-    # K3: point-term GN blocks, FRACTIONAL point weights
-    P = MAX_POINTS
+    # K3' and K4' on random inputs: fractional point weights; 8 edge
+    # slots per node, a fifth of them invalid (index -1 clamped to 0,
+    # weight 0); a motion prior on a random two thirds of the nodes
+    P, E = MAX_POINTS, 8
     pts = q[:P].contiguous()
-    a_p = idx_k[:P].contiguous()
-    w_p = w[:P].contiguous()
-    tgt = pts + (rand(P, 3) - 0.5) * 0.01
-    pv = 0.3 + 0.7 * rand(P)
-    sw = 1.0
-    args = (pts, tgt, pv, a_p, w_p, nodes, R, t, sw)
-    out_k = gn_assembly.point_term_blocks_cuda(*args)
-    out_t = gn_assembly.point_term_blocks_torch(*args)
-
-    def seg(out):
-        blk, bv, rsq = out
-        seg_ids = (a_p.long()[:, :, None] * N + a_p.long()[:, None, :]).reshape(-1)
-        M = torch.zeros((N * N, 36), device=dev).index_add_(
-            0, seg_ids, blk.reshape(-1, 36))
-        bn = torch.zeros((N, 6), device=dev).index_add_(
-            0, a_p.long().reshape(-1), bv.reshape(-1, 6))
-        return M, bn, rsq.sum()
-
-    (M1, b1, s1), (M2, b2, s2) = seg(out_k), seg(out_t)
-    torch.cuda.synchronize()
-    rel_M = float((M1 - M2).abs().max() / M2.abs().max())
-    rel_b = float((b1 - b2).abs().max() / b2.abs().max())
-    rel_s = float((s1 - s2).abs() / s2.abs())
-    assert max(rel_M, rel_b, rel_s) <= 5e-5, (rel_M, rel_b, rel_s)
-    ms, ms_lo, ms_hi = cuda_ms(
-        lambda: gn_assembly.point_term_blocks_cuda(*args), 200)
-    plain = cuda_ms(lambda: gn_assembly.point_term_blocks_torch(*args), 20)[0]
-    b, by = bound_ms(P * (12 + 12 + 4 + 16 + 16) + N * 60 + P * 601 * 4,
-                     P * 3180)
-    rows.append(dict(
-        name="point_term_blocks", route="cuda",
-        source="occlusionfusion_tpu_torch/csrc/gn_assembly.cu",
-        replaces="occlusionfusion_tpu/ops/gn_assembly.py:151",
-        max_abs_err=float((out_k[0] - out_t[0]).abs().max()), ms=ms,
-        plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
-        shape=f"P={P} N={N} K={K}",
-        rel_err_M=rel_M, rel_err_b=rel_b, rel_err_sq=rel_s,
-    ))
-    emit({"phase": "kernel", "name": "point_term_blocks", "rel_err_M": rel_M,
-          "rel_err_b": rel_b, "rel_err_sq": rel_s, "ms": ms,
-          "ms_min": ms_lo, "ms_max": ms_hi,
-          "plain_ms": plain, "bound_ms": b})
-
-    # K4: ARAP-term GN blocks, 8 edge slots per node, a fifth of them
-    # invalid (index -1 clamped to 0, weight 0)
-    E = 8
+    point_args = (pts, pts + (rand(P, 3) - 0.5) * 0.01, 0.3 + 0.7 * rand(P),
+                  idx_k[:P].contiguous(), w[:P].contiguous(), nodes, R, t,
+                  1.0)
     edges = torch.randint(0, N, (N, E), generator=gen, device=dev,
                           dtype=torch.int32)
     invalid = rand(N, E) < 0.2
     ew = rand(N, E)
     wa = torch.sqrt(2.0 * torch.where(invalid, torch.zeros_like(ew), ew))
     edges = torch.where(invalid, torch.zeros_like(edges), edges)
-    args4 = (nodes, R, t, edges, wa)
-    out_k = gn_assembly.arap_term_blocks_cuda(*args4)
-    out_t = gn_assembly.arap_term_blocks_torch(*args4)
-
-    def seg4(out):
-        ii, ij, ji, jj, bi, bj, rsq = out
-        e = edges.long()
-        i = torch.arange(N, device=dev)[:, None].expand(N, E)
-        segs = torch.cat([(i * N + e).reshape(-1), (e * N + i).reshape(-1),
-                          (e * N + e).reshape(-1)])
-        M = torch.zeros((N * N, 36), device=dev).index_add_(
-            0, segs, torch.cat([x.reshape(-1, 36) for x in (ij, ji, jj)]))
-        M.index_add_(0, torch.arange(N, device=dev) * (N + 1),
-                     ii.reshape(-1, 36))
-        bn = torch.zeros((N, 6), device=dev).index_add_(
-            0, e.reshape(-1), bj.reshape(-1, 6)) + bi
-        return M, bn, rsq.sum()
-
-    (M1, b1, s1), (M2, b2, s2) = seg4(out_k), seg4(out_t)
-    torch.cuda.synchronize()
-    rel_M = float((M1 - M2).abs().max() / M2.abs().max())
-    rel_b = float((b1 - b2).abs().max() / b2.abs().max())
-    rel_s = float((s1 - s2).abs() / s2.abs())
-    err4 = max(float((a - b).abs().max()) for a, b in zip(out_k, out_t))
-    assert max(rel_M, rel_b, rel_s) <= 5e-5, (rel_M, rel_b, rel_s)
-    ms, ms_lo, ms_hi = cuda_ms(
-        lambda: gn_assembly.arap_term_blocks_cuda(*args4), 200)
-    plain = cuda_ms(lambda: gn_assembly.arap_term_blocks_torch(*args4),
-                    50)[0]
-    # bytes: nodes, R, t, edges, wa in; ii, ij/ji/jj, b_i, b_j, rsq out;
-    # ~330 flops per edge (rotation, residual, 6x6 accumulation)
-    b, by = bound_ms(N * 60 + N * E * 8
-                     + 4 * (N * 36 + 3 * N * E * 36 + N * 6 + N * E * 6 + N),
-                     N * E * 330)
-    rows.append(dict(
-        name="arap_term_blocks", route="cuda",
-        source="occlusionfusion_tpu_torch/csrc/arap_term.cu",
-        replaces="occlusionfusion_tpu/ops/gn_assembly.py:317",
-        max_abs_err=err4, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-        library_ms=None, shape=f"N={N} E={E}",
-    ))
-    emit({"phase": "kernel", "name": "arap_term_blocks", "rel_err_M": rel_M,
-          "rel_err_b": rel_b, "rel_err_sq": rel_s, "max_abs_err": err4,
-          "invalid_edge_slots": int(invalid.sum()), "ms": ms,
-          "ms_min": ms_lo, "ms_max": ms_hi, "plain_ms": plain,
-          "bound_ms": b})
-    del q, d2_k, d2_t, idx_k, idx_t, y_k, y_t, out_k, out_t
+    wm = rand(N) * (rand(N) < 0.67)
+    arap_args = (nodes, R, t, edges, wa, wm, nodes + (rand(N, 3) - 0.5) * 0.01)
+    gn_rows = gn_kernel_rows("random", point_args, arap_args)
+    emit({"phase": "kernel", "input": "random", "invalid_edge_slots":
+          int(invalid.sum()), "rows": gn_rows})
+    rows.extend(gn_rows)
+    # K3' where few points share an anchor pair: 4 distinct anchors per
+    # point drawn uniformly from all N nodes (the random input above takes
+    # them from the voxels' k-NN, where ~30 points share each pair); K3'
+    # holds M's entries with atomics, and this shows what their contention
+    # costs
+    spread = torch.argsort(rand(P, N), dim=1)[:, :K].to(torch.int32)
+    emit({"phase": "kernel", "input": "spread", "rows": gn_kernel_rows(
+        "spread", point_args[:3] + (spread.contiguous(),) + point_args[4:])})
+    del q, d2_k, d2_t, idx_k, idx_t, y_k, y_t
     torch.cuda.empty_cache()
+    return rows
+
+
+def rel_err(got, ref) -> float:
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def gn_kernel_rows(label, point_args, arap_args=None):
+    """K3' (point term) and, given its arguments, K4' (ARAP term + motion
+    prior) against their accumulating twins on (M, b, sq) from zero,
+    within 5e-5 relative, then timed accumulating into the same system
+    (ms: device time from a CUDA graph of 100 launches; call_ms: one call
+    after another through the wrapper, host checks included); each with
+    the bound of these inputs: every input byte read once, the touched
+    blocks of M (unique anchor pairs x 144 B; the valid edges' 24
+    non-zero entries and the N diagonal blocks) plus b and sq written
+    once."""
+    import torch
+
+    from occlusionfusion_tpu_torch.ops import gn_assembly as GA
+
+    nodes = point_args[5]
+    N = nodes.shape[0]
+    dev = nodes.device
+
+    def system():
+        return (torch.zeros((6 * N, 6 * N), device=dev),
+                torch.zeros(6 * N, device=dev), torch.zeros((), device=dev))
+
+    rows = []
+    kernels = [("point_term_blocks", GA.point_term_accumulate_cuda,
+                GA.point_term_accumulate_torch, point_args, "gn_assembly.cu",
+                "occlusionfusion_tpu/ops/gn_assembly.py:151")]
+    if arap_args is not None:
+        kernels.append(("arap_term_blocks", GA.arap_term_accumulate_cuda,
+                        GA.arap_term_accumulate_torch, arap_args,
+                        "arap_term.cu",
+                        "occlusionfusion_tpu/ops/gn_assembly.py:317"))
+    for name, kernel, twin, args, src, replaces in kernels:
+        got, ref = system(), system()
+        kernel(*args, *got)
+        twin(*args, *ref)
+        torch.cuda.synchronize()
+        errs = [rel_err(g, r) for g, r in zip(got, ref)]
+        assert max(errs) <= 5e-5, (label, name, errs)
+        max_abs = float((got[0] - ref[0]).abs().max())
+        ms, ms_lo, ms_hi = graph_ms(lambda: kernel(*args, *got), 100)
+        # per call through the wrapper, host checks and launch included
+        call = cuda_ms(lambda: kernel(*args, *got), 200)[0]
+        plain = cuda_ms(lambda: twin(*args, *ref), 20)[0]
+        out_bytes = 4 * (6 * N + 1)
+        if name == "point_term_blocks":
+            pts, _, pv, anchors, weights = args[:5]
+            P = pts.shape[0]
+            wg = weights * pv[:, None]
+            live = (wg[:, :, None] * wg[:, None, :]) != 0
+            keys = anchors.long()[:, :, None] * N + anchors.long()[:, None, :]
+            work = int(torch.unique(keys[live]).numel())
+            live_pts = int((wg != 0).any(1).sum())
+            in_bytes = P * (12 + 12 + 4 + 16 + 16) + N * 60
+            out_bytes += work * 144
+            # per live point: local frames, warp, residual and b (~180
+            # flops), then ~110 per anchor pair (block entries and adds)
+            flops = live_pts * (180 + 16 * 110)
+            extra = {"unique_pairs": work, "live_points": live_pts}
+        else:
+            E = args[3].shape[1]
+            valid = int((args[4] != 0).sum())
+            in_bytes = N * 60 + N * E * 8 + N * 16
+            out_bytes += valid * 24 * 4 + N * 36 * 4
+            # per edge slot: rotation, residual and the node sums (~80
+            # flops), 24 adds per valid edge, ~60 per node to expand M[i, i]
+            flops = N * E * 80 + valid * 24 + N * 60
+            extra = {"valid_edges": valid, "E": E}
+        b, by = bound_ms(in_bytes + out_bytes, flops)
+        rows.append(dict(
+            name=name, route="cuda",
+            source=f"occlusionfusion_tpu_torch/csrc/{src}", replaces=replaces,
+            max_abs_err=max_abs, ms=ms, ms_min=ms_lo, ms_max=ms_hi,
+            call_ms=call, plain_ms=plain, bound_ms=b, bound_by=by,
+            library_ms=None, input=label, N=N, rel_err_M=errs[0],
+            rel_err_b=errs[1], rel_err_sq=errs[2], **extra,
+        ))
     return rows
 
 
@@ -491,9 +540,9 @@ def drive_path(path, dev, seq, cfg, net, profile, **nets):
 
 
 def check_tracking(fusion, state, info_np, centers, counts):
-    """The checks every full-size path passes (K1-K4 launched, K4 once
-    per GN iteration); returns the median node translation and the
-    sphere's motion."""
+    """The checks every full-size path passes (K1-K4 launched, K3' and
+    K4' once per GN iteration); returns the median node translation and
+    the sphere's motion."""
     import numpy as np
 
     n = fusion.node_count
@@ -509,11 +558,42 @@ def check_tracking(fusion, state, info_np, centers, counts):
     assert np.isfinite(state.tsdf.tsdf.cpu().numpy()).all()
     for k in PATH_KERNELS:
         assert counts[k] > 0, f"kernel {k} was not launched on this path"
-    assert counts["arap_term_blocks"] == GN_ITERS * len(info_np), counts
+    for k in ("point_term_blocks", "arap_term_blocks"):
+        assert counts[k] == GN_ITERS * len(info_np), counts
     return med, motion, trans
 
 
+class SolveTap:
+    """Within the block, keeps the arguments of the ``at``-th call of the
+    fused step's solve_dense (that is, of frame ``at``): (GNProblem,
+    GNConfig, R, t)."""
+
+    def __init__(self, at):
+        self.at, self.calls, self.call = at, 0, None
+
+    def __enter__(self):
+        from occlusionfusion_tpu_torch.fusion import fused_step
+
+        self.mod, self.orig = fused_step, fused_step.solve_dense
+
+        def tap(problem, config, init_rotations, init_translations):
+            self.calls += 1
+            if self.calls == self.at:
+                self.call = (problem, config, init_rotations.clone(),
+                             init_translations.clone())
+            return self.orig(problem, config, init_rotations,
+                             init_translations)
+
+        fused_step.solve_dense = tap
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.solve_dense = self.orig
+
+
 def phase_main_path(dev, profile=False):
+    """Returns the launch counts and the main path's Gauss-Newton input
+    at frame TAP_FRAME."""
     import numpy as np
 
     from occlusionfusion_tpu_torch.models.checkpoint import (
@@ -523,8 +603,9 @@ def phase_main_path(dev, profile=False):
     seq, centers = sphere_sequence(N_FRAMES + 1, IMG_H, IMG_W, RADIUS, STEP_Z,
                                    DISTANCE)
     net = load_motion_complete_net(device=dev)
-    fusion, state, tables, info_np, timings, counts = drive_path(
-        "main_path", dev, seq, sphere_config(), net, profile)
+    with SolveTap(TAP_FRAME) as tap:
+        fusion, state, tables, info_np, timings, counts = drive_path(
+            "main_path", dev, seq, sphere_config(), net, profile)
     out = {
         "phase": "main_path", "sphere_distance_m": DISTANCE, **timings,
         "nodes": fusion.node_count, "model_points": fusion.model_point_count,
@@ -542,7 +623,46 @@ def phase_main_path(dev, profile=False):
           "node_translation_z_quantiles_10_50_90": np.quantile(
               trans[:, 2], [0.1, 0.5, 0.9]).tolist(),
           "sphere_motion": motion.tolist()})
-    return counts
+    return counts, tap.call
+
+
+def gn_path_inputs(call):
+    """K3' and K4' arguments of the first GN iteration of a tapped solve."""
+    from occlusionfusion_tpu_torch.solvers import gauss_newton_dense as GND
+
+    problem, config, R, t = call
+    terms = GND._fixed_terms(problem, config)
+    point_args = tuple(x.contiguous() for x in (
+        problem.source_points, problem.target_points, problem.point_valid,
+        problem.point_anchors, problem.point_weights, problem.nodes, R, t,
+    )) + (terms.sw,)
+    arap_args = (problem.nodes, R, t, terms.edges, terms.wa, terms.wm,
+                 problem.motion_targets.contiguous())
+    return point_args, arap_args
+
+
+def assembly_ms(call, timer):
+    """ms of one ``_assemble_blocks`` (the zeroed system plus every term)
+    on a tapped solve's input, by ``timer`` (graph_ms: device time;
+    cuda_ms: paced by the host): median, fastest, slowest trial."""
+    from occlusionfusion_tpu_torch.solvers import gauss_newton_dense as GND
+
+    problem, config, R, t = call
+    return timer(lambda: GND._assemble_blocks(problem, config, R, t), 20)
+
+
+def phase_gn_path(call):
+    """K3' and K4' against their twins on the main path's own GN input at
+    frame TAP_FRAME (anchors sharing pairs as the surface makes them),
+    timed with their bounds, and the whole assembly timed."""
+    rows = gn_kernel_rows(f"main_path_frame_{TAP_FRAME}",
+                          *gn_path_inputs(call))
+    asm = assembly_ms(call, graph_ms)
+    emit({"phase": "kernel", "input": f"main_path_frame_{TAP_FRAME}",
+          "rows": rows, "assembly_ms": asm[0],
+          "assembly_ms_min_max": asm[1:],
+          "assembly_call_ms": assembly_ms(call, cuda_ms)[0]})
+    return rows
 
 
 def phase_envelope_flow(dev, profile=False):
@@ -703,6 +823,100 @@ def phase_parity(dev):
             assert sum(i["n_flow_filled"] for i in ig) > 0, "no flow fill"
 
 
+def gn_profile_tree(tree, dev="cuda", ptxas=False):
+    """One tree's Gauss-Newton solve on the main path's input at frame
+    TAP_FRAME: ms per call of ``_assemble_blocks`` and of ``solve_dense``
+    back to back (CUDA events; paced by the host where it is slower than
+    the device), the host ms to enqueue one solve, and a torch.profiler
+    trace of 5 assemblies and 5 solves (device ms and device ops, that is
+    kernels, fills and copies, per call; device ms by kernel per solve).
+    Uses only what every tree of the port has, so it times a parent
+    commit's tree as well."""
+    import torch
+    from torch.autograd import DeviceType
+
+    import occlusionfusion_tpu_torch as pkg
+    from occlusionfusion_tpu_torch import device as D
+    from occlusionfusion_tpu_torch.fusion.pipeline import DynamicFusion
+    from occlusionfusion_tpu_torch.models.checkpoint import (
+        load_motion_complete_net,
+    )
+    from occlusionfusion_tpu_torch.solvers import gauss_newton_dense as GND
+
+    if ptxas:
+        print(D.build_kernels(verbose=True), flush=True)
+    D.kernel_lib()
+    seq, _ = sphere_sequence(TAP_FRAME + 1, IMG_H, IMG_W, RADIUS, STEP_Z,
+                             DISTANCE)
+    net = load_motion_complete_net(device=dev)
+    with SolveTap(TAP_FRAME) as tap:
+        fusion = DynamicFusion(seq, sphere_config(), device=dev)
+        fusion.initialize(seq.load(0))
+        sc, state, tables = fusion.build_fused(net)
+        for i in range(1, len(seq)):
+            state, _ = fusion.register_frame_fused(sc, state, tables,
+                                                   seq.load(i), net)
+    problem, config, R, t = tap.call
+    asm = assembly_ms(tap.call, cuda_ms)
+    solve = cuda_ms(lambda: GND.solve_dense(problem, config, R, t), 5)
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        GND.solve_dense(problem, config, R, t)
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    out = {"phase": "gn_profile", "tree": tree, "package": pkg.__file__,
+           "iters": config.iters, "assembly_call_ms": asm[0],
+           "assembly_call_ms_min_max": asm[1:], "solve_ms": solve[0],
+           "solve_ms_min_max": solve[1:],
+           "solve_host_enqueue_ms": sorted(host)[len(host) // 2]}
+    reps = 5
+    for what, fn in (
+        ("assembly", lambda: GND._assemble_blocks(problem, config, R, t)),
+        ("solve", lambda: GND.solve_dense(problem, config, R, t)),
+    ):
+        with profiled(True) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_kernel = {}
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            dt = getattr(ev, "self_device_time_total", None)
+            if dt is None:
+                dt = getattr(ev, "self_cuda_time_total", 0)
+            us, n = by_kernel.get(ev.key, (0.0, 0))
+            by_kernel[ev.key] = (us + dt, n + ev.count)
+        out[f"{what}_device_ms_traced"] = sum(
+            v[0] for v in by_kernel.values()) / 1e3 / reps
+        out[f"{what}_device_ops"] = sum(
+            v[1] for v in by_kernel.values()) / reps
+        if what == "solve":
+            out["solve_top"] = [
+                {"name": k[:80], "ms": us / 1e3 / reps, "calls": n / reps}
+                for k, (us, n) in sorted(by_kernel.items(),
+                                         key=lambda kv: -kv[1][0])[:15]]
+    emit(out)
+
+
+def gn_compare(trees, ptxas=False):
+    """gn_profile_tree for each tree in its own process, in the order
+    given (parent, change, change, parent compares two commits on one
+    card); ``ptxas`` also prints each tree's registers and spills."""
+    for tree in trees:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--gn-profile-tree",
+             tree] + (["--ptxas"] if ptxas else []),
+            capture_output=True, text=True, timeout=600,
+        )
+        print(proc.stdout, end="", flush=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"gn profile of {tree} failed")
+
+
 def main(argv) -> int:
     t_all = time.perf_counter()
     import torch
@@ -710,11 +924,22 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(HERE, "occlusionfusion_tpu_torch")):
-        print("chip_smoke: occlusionfusion_tpu_torch/ not found beside "
-              "this script", file=sys.stderr)
+    tree = HERE
+    if "--gn-profile-tree" in argv:
+        tree = os.path.abspath(argv[argv.index("--gn-profile-tree") + 1])
+    if not os.path.isdir(os.path.join(tree, "occlusionfusion_tpu_torch")):
+        print(f"chip_smoke: occlusionfusion_tpu_torch/ not found in {tree}",
+              file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, tree)
+    if "--gn-profile-tree" in argv:
+        gn_profile_tree(tree, ptxas="--ptxas" in argv)
+        return 0
+    if "--gn-compare" in argv:
+        print(nvidia_smi_line(), flush=True)
+        gn_compare([a for a in argv[argv.index("--gn-compare") + 1:]
+                    if not a.startswith("--")], ptxas="--ptxas" in argv)
+        return 0
     from occlusionfusion_tpu_torch import device as D
 
     dev = "cuda"
@@ -738,8 +963,16 @@ def main(argv) -> int:
 
     profile = "--profile" in argv
     t = time.perf_counter()
-    phase_main_path(dev, profile)
+    _, call = phase_main_path(dev, profile)
     emit({"phase": "main_path_done", "s": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    # the kernels line carries K3' and K4' on the main path's own input
+    by_name = {r["name"]: r for r in rows}
+    by_name.update((r["name"], r) for r in phase_gn_path(call))
+    rows = list(by_name.values())
+    del call
+    emit({"phase": "gn_path_done", "s": time.perf_counter() - t})
 
     t = time.perf_counter()
     counts = phase_envelope_flow(dev, profile)

@@ -1,139 +1,200 @@
-// Gauss-Newton ARAP edge-term block assembly (K4).
+// Gauss-Newton ARAP edge term and motion prior, accumulated in place
+// (K4').
 //
 // Replaces the TPU kernel
 // occlusionfusion_tpu/ops/gn_assembly.py::arap_term_blocks_pallas
-// (_arap_kernel). Per node i and edge slot k (neighbour j, weight wa):
-//   rot  = R_i (g_j - g_i)
-//   r    = wa * (rot + g_i + t_i - g_j - t_j)                   [3]
-//   J_i  = wa * [-hat(rot) | I],  J_j = wa * [0 | -I]          [3 x 6]
-//   ii[i]     = sum_k J_i^T J_i     ij[i, k] = J_i^T J_j
-//   ji[i, k]  = ij[i, k]^T          jj[i, k] = J_j^T J_j
-//   b_i[i]    = sum_k J_i^T r       b_j[i, k] = J_j^T r
-//   rsq[i]    = sum_k r . r
-// Edges arrive clamped to >= 0; invalid edges carry wa = 0, so all their
-// outputs are zero.
+// (_arap_kernel) together with the caller's scatter of its blocks and
+// the motion-prior ops: it adds both terms straight into the dense
+// normal equations M [6N, 6N], b [6N] and sq, as the JAX package's
+// solvers/gauss_newton_dense.py::_assemble_blocks(assembly="blocks")
+// does. Per node i and edge slot k (neighbour j, weight wa):
+//   rho = R_i (g_j - g_i)
+//   r   = wa (rho + g_i + t_i - g_j - t_j)                       [3]
+//   J_i = wa [-hat(rho) | I],  J_j = wa [0 | -I]                 [3 x 6]
+//   M[i, i] += J_i^T J_i = wa^2 [[|rho|^2 I - rho rho^T, hat(rho)],
+//                                [-hat(rho),             I       ]]
+//   M[i, j] += J_i^T J_j = wa^2 [[0, -hat(rho)], [0, -I]]
+//   M[j, i] += (J_i^T J_j)^T,   M[j, j] += wa^2 [[0, 0], [0, I]]
+//   b[i] += J_i^T r = wa [rho x r; r],   b[j] += [0; -wa r],   sq += r.r
+// and per node the motion prior r_m = wm (g_i + t_i - m_i):
+//   M[i, i] += wm^2 on the translation diagonal,  b[i] += [0; wm r_m],
+//   sq += r_m.r_m.
+// Edges arrive clamped to >= 0; invalid edges carry wa = 0 and nodes
+// without a prior wm = 0, and add nothing.
 //
-// Design: one thread per node, looping over its edges with ii, b_i and
-// rsq in registers. The neighbour rows g_j, t_j are gathered straight
-// from device memory in f32: the TPU kernel's one-hot bf16 hi/lo matmul
-// (~2^-17 relative) existed only to feed the MXU and is dropped. At
-// 512 nodes x 8 edges the kernel writes 2.0 MB (0.6 us at 3.35 TB/s)
-// for ~2 MFLOP, so it is bound by bytes, and in practice by its launch.
+// Design. One lane per (node, edge slot): a node's E slots take a group
+// of G lanes, G the power of two >= E (E <= 32; the spare lanes add
+// nothing), so at E = 8 a warp holds 4 nodes and N = 512 gives 4096
+// lanes in 128 blocks, where the old kernel ran 512 threads on 8 SMs.
+// Each node's sums (the 10 distinct values of M[i, i]'s edge part, b_i
+// and r.r) are reduced over its lanes with __shfl_xor_sync; the group's
+// first lane adds M[i, i] with 8-byte vector atomics and b_i. Each valid
+// edge's lane adds only the entries of M[i, j], M[j, i], M[j, j] and
+// b[j] that are not zero by construction: 9 + 9 + 3 + 3, where the old
+// kernel stored 4 dense 6x6 blocks per edge (864 scattered stores per
+// node, 2.0 MB at N = 512) for the caller to segment-sum and permute.
+// What bounds it is its launch and the atomics' latency: it moves
+// ~0.1 MB (0.0001 ms at 3.35 TB/s) and takes ~0.003 ms on the H100
+// (PERF.md, kernel table). Atomics make the sum order vary from run to
+// run, as the index_add_ they replace did on the card.
 
-#include <cuda_runtime.h>
-#include <cstdint>
+#include "accumulate.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;
+constexpr int kThreads = 32;
 
-__global__ void arap_term_kernel(
+__global__ void __launch_bounds__(kThreads) arap_term_accumulate_kernel(
     const float* __restrict__ nodes, const float* __restrict__ R,
     const float* __restrict__ t, const int32_t* __restrict__ edges,
-    const float* __restrict__ wa, int N, int E, float* __restrict__ ii,
-    float* __restrict__ ij, float* __restrict__ ji, float* __restrict__ jj,
-    float* __restrict__ bi, float* __restrict__ bj,
-    float* __restrict__ rsq) {
-  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
+    const float* __restrict__ wa, const float* __restrict__ wm,
+    const float* __restrict__ mt, int N, int E, int log2G,
+    float* __restrict__ M, float* __restrict__ bvec,
+    float* __restrict__ sq) {
+  const int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int G = 1 << log2G;
+  const int64_t node = gid >> log2G;
+  const int k = (int)(gid & (G - 1));
+  const bool node_ok = node < N;
+  const int i = node_ok ? (int)node : 0;
+  int j = i;
+  float w = 0.f;
+  if (node_ok && k < E) {
+    j = min(max(edges[(int64_t)i * E + k], 0), N - 1);
+    w = wa[(int64_t)i * E + k];
+  }
   float Ri[9];
 #pragma unroll
-  for (int c = 0; c < 9; ++c) Ri[c] = R[9 * n + c];
-  const float gi[3] = {nodes[3 * n], nodes[3 * n + 1], nodes[3 * n + 2]};
-  const float ti[3] = {t[3 * n], t[3 * n + 1], t[3 * n + 2]};
-  float acc_ii[6][6];
-  float acc_bi[6];
+  for (int c = 0; c < 9; ++c) Ri[c] = __ldg(R + 9 * (int64_t)i + c);
+  float gi[3], ti[3], gj[3], tj[3];
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    acc_bi[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 6; ++j) acc_ii[i][j] = 0.f;
+  for (int c = 0; c < 3; ++c) {
+    gi[c] = __ldg(nodes + 3 * (int64_t)i + c);
+    ti[c] = __ldg(t + 3 * (int64_t)i + c);
+    gj[c] = __ldg(nodes + 3 * (int64_t)j + c);
+    tj[c] = __ldg(t + 3 * (int64_t)j + c);
   }
-  float sq = 0.f;
-  for (int k = 0; k < E; ++k) {
-    const int64_t ek = n * E + k;
-    const int j = min(max(edges[ek], 0), N - 1);
-    const float w = wa[ek];
-    const float gj[3] = {__ldg(nodes + 3 * j), __ldg(nodes + 3 * j + 1),
-                         __ldg(nodes + 3 * j + 2)};
-    const float tj[3] = {__ldg(t + 3 * j), __ldg(t + 3 * j + 1),
-                         __ldg(t + 3 * j + 2)};
-    const float d[3] = {gj[0] - gi[0], gj[1] - gi[1], gj[2] - gi[2]};
-    float rot[3];
+  const float d[3] = {gj[0] - gi[0], gj[1] - gi[1], gj[2] - gi[2]};
+  float rho[3], r[3];
 #pragma unroll
-    for (int a = 0; a < 3; ++a)
-      rot[a] = Ri[3 * a] * d[0] + Ri[3 * a + 1] * d[1] + Ri[3 * a + 2] * d[2];
-    float r[3];
+  for (int a = 0; a < 3; ++a) {
+    rho[a] = Ri[3 * a] * d[0] + Ri[3 * a + 1] * d[1] + Ri[3 * a + 2] * d[2];
+    r[a] = w * (rho[a] + gi[a] + ti[a] - gj[a] - tj[a]);
+  }
+  const float w2 = w * w;
+  float rsq = r[0] * r[0] + r[1] * r[1] + r[2] * r[2];
+
+  // the node's sums over its lanes: M[i, i]'s rotation block (xx, yy,
+  // zz, xy, xz, yz), wa^2 rho, wa^2, then b_i
+  float acc[16] = {
+      w2 * (rho[1] * rho[1] + rho[2] * rho[2]),
+      w2 * (rho[0] * rho[0] + rho[2] * rho[2]),
+      w2 * (rho[0] * rho[0] + rho[1] * rho[1]),
+      -w2 * (rho[0] * rho[1]),
+      -w2 * (rho[0] * rho[2]),
+      -w2 * (rho[1] * rho[2]),
+      w2 * rho[0], w2 * rho[1], w2 * rho[2], w2,
+      w * (rho[1] * r[2] - rho[2] * r[1]),
+      w * (rho[2] * r[0] - rho[0] * r[2]),
+      w * (rho[0] * r[1] - rho[1] * r[0]),
+      w * r[0], w * r[1], w * r[2]};
+  for (int o = G >> 1; o > 0; o >>= 1) {
 #pragma unroll
-    for (int a = 0; a < 3; ++a)
-      r[a] = w * (rot[a] + gi[a] + ti[a] - gj[a] - tj[a]);
-    // J_i rows a, columns i: -hat(rot) = [[0, rz, -ry], [-rz, 0, rx],
-    // [ry, -rx, 0]] scaled by wa, then wa on the translation diagonal
-    const float nh[3][3] = {{0.f, rot[2], -rot[1]},
-                            {-rot[2], 0.f, rot[0]},
-                            {rot[1], -rot[0], 0.f}};
-    float Ji[3][6];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
+    for (int c = 0; c < 16; ++c)
+      acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], o);
+  }
+
+  const int64_t ld = 6 * (int64_t)N;
+  if (node_ok && k == 0) {
+    const float wmi = wm[i];
+    float bt[3] = {acc[13], acc[14], acc[15]};
+    if (wmi != 0.f) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        Ji[a][c] = nh[a][c] * w;
-        Ji[a][3 + c] = (a == c) ? w : 0.f;
+        const float rm = wmi * (gi[c] + ti[c] - mt[3 * (int64_t)i + c]);
+        rsq += rm * rm;
+        bt[c] += wmi * rm;
+      }
+    }
+    if (acc[9] != 0.f || wmi != 0.f) {
+      const float S[3][3] = {{acc[0], acc[3], acc[4]},
+                             {acc[3], acc[1], acc[5]},
+                             {acc[4], acc[5], acc[2]}};
+      const float* Pv = acc + 6;
+      const float W = acc[9] + wmi * wmi;
+#pragma unroll
+      for (int row = 0; row < 3; ++row) {
+        float* dst = block_row(M, ld, i, i, row);
+        add2(dst, S[row][0], S[row][1]);
+        add2(dst + 2, S[row][2], hat_entry(Pv, row, 0));
+        add2(dst + 4, hat_entry(Pv, row, 1), hat_entry(Pv, row, 2));
+      }
+      float* d3 = block_row(M, ld, i, i, 3);
+      add2(d3, 0.f, -hat_entry(Pv, 0, 1));
+      add2(d3 + 2, -hat_entry(Pv, 0, 2), W);
+      float* d4 = block_row(M, ld, i, i, 4);
+      add2(d4, -hat_entry(Pv, 1, 0), 0.f);
+      add2(d4 + 2, -hat_entry(Pv, 1, 2), 0.f);
+      add2(d4 + 4, W, 0.f);
+      float* d5 = block_row(M, ld, i, i, 5);
+      add2(d5, -hat_entry(Pv, 2, 0), -hat_entry(Pv, 2, 1));
+      add2(d5 + 4, 0.f, W);
+      float* bo = bvec + 6 * (int64_t)i;
+      add2(bo, acc[10], acc[11]);
+      add2(bo + 2, acc[12], bt[0]);
+      add2(bo + 4, bt[1], bt[2]);
+    }
+  }
+
+  if (w != 0.f) {
+    // M[i, j]: rotation rows a, columns 3 + c: -wa^2 hat(rho)[a][c];
+    // translation rows 3 + c, column 3 + c: -wa^2. M[j, i] is its
+    // transpose; M[j, j] has wa^2 on its translation diagonal.
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      float* dij = block_row(M, ld, i, j, a);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        if (c == a) continue;
+        const float v = -w2 * hat_entry(rho, a, c);
+        atomicAdd(dij + 3 + c, v);
+        atomicAdd(block_row(M, ld, j, i, 3 + c) + a, v);
       }
     }
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
-#pragma unroll
-      for (int c = 0; c < 6; ++c)
-        acc_ii[i][c] += Ji[0][i] * Ji[0][c] + Ji[1][i] * Ji[1][c] +
-                        Ji[2][i] * Ji[2][c];
-      acc_bi[i] += Ji[0][i] * r[0] + Ji[1][i] * r[1] + Ji[2][i] * r[2];
+    for (int c = 0; c < 3; ++c) {
+      atomicAdd(block_row(M, ld, i, j, 3 + c) + 3 + c, -w2);
+      atomicAdd(block_row(M, ld, j, i, 3 + c) + 3 + c, -w2);
+      atomicAdd(block_row(M, ld, j, j, 3 + c) + 3 + c, w2);
+      atomicAdd(bvec + 6 * (int64_t)j + 3 + c, -w * r[c]);
     }
-    // J_j = wa [0 | -I]: ij[i][c] = -wa J_i[c - 3][i] for c >= 3, else 0;
-    // jj = wa^2 on the translation diagonal; b_j = -wa r on translation
-    float* oij = ij + ek * 36;
-    float* oji = ji + ek * 36;
-    float* ojj = jj + ek * 36;
-#pragma unroll
-    for (int i = 0; i < 6; ++i) {
-#pragma unroll
-      for (int c = 0; c < 6; ++c) {
-        const float v = (c >= 3) ? -(w * Ji[c - 3][i]) : 0.f;
-        oij[i * 6 + c] = v;
-        oji[c * 6 + i] = v;
-        ojj[i * 6 + c] = (i == c && i >= 3) ? w * w : 0.f;
-      }
-      bj[ek * 6 + i] = (i >= 3) ? -(w * r[i - 3]) : 0.f;
-    }
-    sq += r[0] * r[0] + r[1] * r[1] + r[2] * r[2];
   }
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-#pragma unroll
-    for (int c = 0; c < 6; ++c) ii[n * 36 + i * 6 + c] = acc_ii[i][c];
-    bi[n * 6 + i] = acc_bi[i];
-  }
-  rsq[n] = sq;
+
+  rsq = warp_sum(rsq);
+  if ((threadIdx.x & 31) == 0) atomicAdd(sq, rsq);
 }
 
 }  // namespace
 
-extern "C" int of_arap_term_blocks(const void* nodes, const void* R,
-                                   const void* t, const void* edges,
-                                   const void* wa, int N, int E,
-                                   void* ii_out, void* ij_out, void* ji_out,
-                                   void* jj_out, void* bi_out, void* bj_out,
-                                   void* rsq_out, void* stream) {
+extern "C" int of_arap_term_accumulate(const void* nodes, const void* R,
+                                       const void* t, const void* edges,
+                                       const void* wa, const void* wm,
+                                       const void* motion_targets, int N,
+                                       int E, void* M, void* b, void* sq,
+                                       void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (N <= 0) return 0;
-  if (E < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (N + kThreads - 1) / kThreads;
-  arap_term_kernel<<<blocks, kThreads, 0, s>>>(
+  if (E < 0 || E > 32) return static_cast<int>(cudaErrorInvalidValue);
+  int log2G = 0;
+  while ((1 << log2G) < E) ++log2G;
+  const int64_t lanes = (int64_t)N << log2G;
+  const int blocks = (int)((lanes + kThreads - 1) / kThreads);
+  arap_term_accumulate_kernel<<<blocks, kThreads, 0, s>>>(
       static_cast<const float*>(nodes), static_cast<const float*>(R),
       static_cast<const float*>(t), static_cast<const int32_t*>(edges),
-      static_cast<const float*>(wa), N, E, static_cast<float*>(ii_out),
-      static_cast<float*>(ij_out), static_cast<float*>(ji_out),
-      static_cast<float*>(jj_out), static_cast<float*>(bi_out),
-      static_cast<float*>(bj_out), static_cast<float*>(rsq_out));
+      static_cast<const float*>(wa), static_cast<const float*>(wm),
+      static_cast<const float*>(motion_targets), N, E, log2G,
+      static_cast<float*>(M), static_cast<float*>(b),
+      static_cast<float*>(sq));
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,8 +11,13 @@
   the build takes seconds, not minutes. One ``nvcc -c`` per source runs
   in parallel, then one link. It rebuilds when a source is newer than
   the library.
+* ``launch(fn_name, dev, ...)`` runs a launcher on device ``dev`` and
+  its current stream; each wrapper passes the device its tensors sit on
+  (``tensors_device``, which refuses inputs on different devices).
 * ``launch_counts`` holds one counter per kernel. A wrapper adds one
-  where it launches its kernel and nowhere else.
+  where it launches its kernel and nowhere else. The GN kernels keep
+  the keys of the kernels they replaced (``point_term_blocks``,
+  ``arap_term_blocks``).
 """
 
 from __future__ import annotations
@@ -59,17 +64,15 @@ _SIGNATURES = {
     "of_knn": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP, _VP],
     # pts, anchors, weights, valid, T12, P, K, N, out, stream
     "of_lbs_warp": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP],
-    # pts, tgt, pv, anchors, weights, nodes, R, t, sw, P, N,
-    # blk_out, b_out, rsq_out, stream
-    "of_point_term_blocks": [
+    # pts, tgt, pv, anchors, weights, nodes, R, t, sw, P, N, M, b, sq,
+    # stream
+    "of_point_term_accumulate": [
         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _F, _I, _I,
         _VP, _VP, _VP, _VP,
     ],
-    # nodes, R, t, edges, wa, N, E,
-    # ii_out, ij_out, ji_out, jj_out, bi_out, bj_out, rsq_out, stream
-    "of_arap_term_blocks": [
-        _VP, _VP, _VP, _VP, _VP, _I, _I,
-        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+    # nodes, R, t, edges, wa, wm, motion_targets, N, E, M, b, sq, stream
+    "of_arap_term_accumulate": [
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP, _VP, _VP, _VP,
     ],
 }
 
@@ -174,11 +177,23 @@ def check_cuda_tensor(name: str, x: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def launch(fn_name: str, *args) -> None:
-    """Call one exported launcher on the current stream; raise if the
-    launch returned a CUDA error."""
+def tensors_device(**tensors) -> torch.device:
+    """The one device all ``tensors`` sit on; raise if they differ."""
+    devs = {name: x.device for name, x in tensors.items()}
+    first = next(iter(devs.values()))
+    odd = [f"{n} on {d}" for n, d in devs.items() if d != first]
+    if odd:
+        raise ValueError(f"inputs on different devices: expected {first}, "
+                         f"got {', '.join(odd)}")
+    return first
+
+
+def launch(fn_name: str, dev: torch.device, *args) -> None:
+    """Call one exported launcher on device ``dev`` (the tensors' own)
+    and its current stream; raise if the launch returned a CUDA error."""
     lib = kernel_lib()
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, fn_name)(*args, stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, fn_name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA launch failed with error {err}")

@@ -62,7 +62,12 @@ class FusionConfig:
     max_points: int = 8192
     max_depth_diff: float = 0.1
     graph: GraphConfig = field(default_factory=GraphConfig)
-    gn: GNConfig = field(default_factory=lambda: GNConfig(iters=6))
+    # the weights the JAX package derives for solver="gn_dense" when its
+    # gn is None (fusion/fused_step.py:556-561): iters 6, w_point =
+    # nicp.w_ldmk, w_arap = nicp.w_arap, w_motion = nicp.w_motion / 100
+    # at the NICPConfig defaults
+    gn: GNConfig = field(default_factory=lambda: GNConfig(
+        iters=6, w_point=1.0, w_arap=10.0, w_motion=1.0))
     use_motion_model: bool = True
     solver: str = "gn_dense"
     # 0 = dense grid; > 0 = brick edge in voxels; -1 (the JAX default) =

@@ -91,16 +91,17 @@ def knn_cuda(queries, refs, k: int, valid=None):
     if k != 4 or N < 4:
         raise ValueError(f"knn kernel takes k == 4 and >= 4 refs, got "
                          f"k={k}, {N} refs")
+    dev = D.tensors_device(queries=queries, refs=refs)
     D.check_cuda_tensor("queries", queries, torch.float32, (None, 3))
     D.check_cuda_tensor("refs", refs, torch.float32, (None, 3))
     ref_sq = _sq3(refs).contiguous()
     bias = _bias(valid, N, refs).contiguous()
-    d2 = torch.empty((P, k), dtype=torch.float32, device=queries.device)
-    idx = torch.empty((P, k), dtype=torch.int32, device=queries.device)
+    d2 = torch.empty((P, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((P, k), dtype=torch.int32, device=dev)
     if P == 0:
         return d2, idx
     D.launch(
-        "of_knn", queries.data_ptr(), refs.data_ptr(), ref_sq.data_ptr(),
+        "of_knn", dev, queries.data_ptr(), refs.data_ptr(), ref_sq.data_ptr(),
         bias.data_ptr(), P, N, k, d2.data_ptr(), idx.data_ptr(),
     )
     D.launch_counts["knn"] += 1

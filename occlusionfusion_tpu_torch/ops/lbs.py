@@ -39,17 +39,22 @@ def lbs_warp_cuda(points, anchors, weights, valid, state: WarpFieldState):
     N = state.node_positions.shape[0]
     if K != 4:
         raise ValueError(f"LBS kernel takes K == 4 anchors, got {K}")
+    dev = D.tensors_device(
+        points=points, anchors=anchors, weights=weights, valid=valid,
+        node_positions=state.node_positions, rotations=state.rotations,
+        translations=state.translations,
+    )
     D.check_cuda_tensor("points", points, torch.float32, (P, 3))
     D.check_cuda_tensor("anchors", anchors, torch.int32, (P, K))
     D.check_cuda_tensor("weights", weights, torch.float32, (P, K))
     D.check_cuda_tensor("valid", valid, torch.bool, (P,))
     T = pack_transforms(state)
     D.check_cuda_tensor("transforms", T, torch.float32, (N, 12))
-    out = torch.empty((P, 3), dtype=torch.float32, device=points.device)
+    out = torch.empty((P, 3), dtype=torch.float32, device=dev)
     if P == 0:
         return out
     D.launch(
-        "of_lbs_warp", points.data_ptr(), anchors.data_ptr(),
+        "of_lbs_warp", dev, points.data_ptr(), anchors.data_ptr(),
         weights.data_ptr(), valid.data_ptr(), T.data_ptr(), P, K, N,
         out.data_ptr(),
     )

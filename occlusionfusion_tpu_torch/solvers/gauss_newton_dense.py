@@ -2,11 +2,13 @@
 ``occlusionfusion_tpu/solvers/gauss_newton_dense.py``, block assembly and
 Cholesky only).
 
-Per iteration: the point-term jacobian blocks (kernel K3 on CUDA, its
-twin on the CPU), the ARAP blocks (kernel K4 on CUDA, its twin on the
-CPU), and one segment-sum of all pair blocks into the [N*N, 36] block
-table; the motion prior adds to the translation diagonal; the damped
-system is solved by Cholesky and the rotations retract as R <- exp(dw) R.
+Per iteration: zero the system, add the point term (kernel K3' on CUDA,
+its twin on the CPU) and the ARAP term with the motion prior (kernel K4'
+on CUDA, its twin on the CPU) straight into M [6N, 6N], b [6N] and sq;
+solve the damped system by Cholesky; retract the rotations as
+R <- exp(dw) R. What does not change between iterations (the clamped
+edges and their weights, the prior's weights, the free-node mask and the
+damping) is computed once per solve.
 
 Linearization at the current estimate (dw = 0):
   point residual  r_p = sum_k w_k (R_k (x_p - g_k) + g_k + t_k) - y_p
@@ -17,16 +19,16 @@ Linearization at the current estimate (dw = 0):
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from occlusionfusion_tpu_torch.geometry.edwarp import ed_warp
 from occlusionfusion_tpu_torch.geometry.so3 import so3_exp
 from occlusionfusion_tpu_torch.ops.gn_assembly import (
-    arap_term_blocks,
-    point_term_blocks,
+    arap_term_accumulate,
+    point_term_accumulate,
 )
-from occlusionfusion_tpu_torch.ops.segment_ops import segment_sum
 from occlusionfusion_tpu_torch.solvers.gauss_newton import (
     GNConfig,
     GNProblem,
@@ -35,73 +37,49 @@ from occlusionfusion_tpu_torch.solvers.gauss_newton import (
 )
 
 
-def pair_segment_ids(point_anchors, edges, n: int):
-    """Scatter segment of every block row of ``_assemble_blocks``:
-    [point K^2 pairs | arap ij | arap ji | arap jj]."""
-    a = point_anchors.long()
-    e = torch.clamp(edges, min=0).long()
-    E_k = edges.shape[1]
-    seg_pt = (a[:, :, None] * n + a[:, None, :]).reshape(-1)
-    idx_i = torch.arange(n, device=a.device)[:, None].expand(n, E_k)
-    seg_ij = (idx_i * n + e).reshape(-1)
-    seg_ji = (e * n + idx_i).reshape(-1)
-    seg_jj = (e * n + e).reshape(-1)
-    return torch.cat([seg_pt, seg_ij, seg_ji, seg_jj])
+class _FixedTerms(NamedTuple):
+    """The assembly's inputs that stay fixed over a solve."""
+
+    sw: float  # sqrt(w_point)
+    edges: torch.Tensor  # [N, E] int32, clamped >= 0
+    wa: torch.Tensor  # [N, E] sqrt(w_arap * edge weight), 0 on invalid
+    wm: torch.Tensor  # [N] sqrt(w_motion) * confidence on valid nodes
+
+
+def _fixed_terms(problem: GNProblem, config: GNConfig) -> _FixedTerms:
+    edges = problem.edges
+    wa = torch.sqrt(float(config.w_arap) * torch.where(
+        edges >= 0, problem.edge_weights,
+        torch.zeros_like(problem.edge_weights),
+    ))
+    wm = math.sqrt(float(config.w_motion)) * problem.motion_confidence * (
+        problem.node_valid.to(torch.float32)
+    )
+    return _FixedTerms(math.sqrt(float(config.w_point)),
+                       torch.clamp(edges, min=0).to(torch.int32), wa, wm)
+
+
+def _accumulate(problem: GNProblem, terms: _FixedTerms, R, t, M, b, sq):
+    """Add every term at (R, t) into (M, b, sq)."""
+    point_term_accumulate(
+        problem.source_points, problem.target_points, problem.point_valid,
+        problem.point_anchors, problem.point_weights, problem.nodes, R, t,
+        terms.sw, M, b, sq,
+    )
+    arap_term_accumulate(problem.nodes, R, t, terms.edges, terms.wa,
+                         terms.wm, problem.motion_targets, M, b, sq)
 
 
 def _assemble_blocks(problem: GNProblem, config: GNConfig, R, t):
-    """(M [6N, 6N], b [6N], sq) at the current estimate: 6x6 blocks per
-    anchor pair and per edge, accumulated into the [N, N] block table."""
+    """(M [6N, 6N], b [6N], sq) at the current estimate, in the JAX
+    package's layout."""
     n = problem.nodes.shape[0]
-    P, K = problem.point_anchors.shape
     dev = problem.nodes.device
-    # kernel K3 on CUDA tensors, its twin on CPU tensors
-    blk16, b_pt, rsq = point_term_blocks(
-        problem.source_points, problem.target_points, problem.point_valid,
-        problem.point_anchors, problem.point_weights, problem.nodes, R, t,
-        math.sqrt(float(config.w_point)),
-    )
-    sq = torch.sum(rsq)
-    a = problem.point_anchors.long()
-
-    # ARAP term: kernel K4 on CUDA tensors, its twin on CPU tensors
-    e = torch.clamp(problem.edges, min=0)
-    wa = torch.sqrt(float(config.w_arap) * torch.where(
-        problem.edges >= 0, problem.edge_weights,
-        torch.zeros_like(problem.edge_weights),
-    ))
-    ii, ij, ji, jj, b_arap_i, b_arap_j, rsq_a = arap_term_blocks(
-        problem.nodes, R, t, e, wa
-    )
-    sq = sq + torch.sum(rsq_a)
-
-    # one segment-sum of every pair block into the [N*N, 36] table
-    all_blocks = torch.cat([
-        blk16.reshape(-1, 36), ij.reshape(-1, 36), ji.reshape(-1, 36),
-        jj.reshape(-1, 36),
-    ])
-    segs = pair_segment_ids(problem.point_anchors, problem.edges, n)
-    M_blocks = segment_sum(all_blocks, segs, n * n)
-    diag = torch.arange(n, device=dev) * (n + 1)
-    M_blocks.index_add_(0, diag, ii.reshape(-1, 36))
-    b_nodes = segment_sum(
-        torch.cat([b_pt.reshape(-1, 6), b_arap_j.reshape(-1, 6)]),
-        torch.cat([a.reshape(-1), e.reshape(-1).long()]), n,
-    ) + b_arap_i
-
-    if config.w_motion:
-        wm = math.sqrt(float(config.w_motion)) * problem.motion_confidence * (
-            problem.node_valid.to(torch.float32)
-        )
-        r_m = wm[:, None] * (problem.nodes + t - problem.motion_targets)
-        mot = torch.zeros((n, 6, 6), dtype=torch.float32, device=dev)
-        mot[:, 3:, 3:] = torch.eye(3, device=dev) * (wm**2)[:, None, None]
-        M_blocks.index_add_(0, diag, mot.reshape(-1, 36))
-        b_nodes[:, 3:] += wm[:, None] * r_m
-        sq = sq + torch.sum(r_m * r_m)
-
-    M = M_blocks.reshape(n, n, 6, 6).permute(0, 2, 1, 3).reshape(6 * n, 6 * n)
-    return M, b_nodes.reshape(-1), sq
+    M = torch.zeros((6 * n, 6 * n), dtype=torch.float32, device=dev)
+    b = torch.zeros((6 * n,), dtype=torch.float32, device=dev)
+    sq = torch.zeros((), dtype=torch.float32, device=dev)
+    _accumulate(problem, _fixed_terms(problem, config), R, t, M, b, sq)
+    return M, b, sq
 
 
 def solve_dense(problem: GNProblem, config: GNConfig, init_rotations,
@@ -116,17 +94,24 @@ def solve_dense(problem: GNProblem, config: GNConfig, init_rotations,
     R, t = init_rotations, init_translations
     free = (problem.solve_node_mask & problem.node_valid).to(torch.float32)
     free6 = torch.repeat_interleave(free, 6)
+    free66 = free6[:, None] * free6[None, :]
     damp = torch.diag(torch.where(
         free6 > 0, torch.full_like(free6, config.lm_damping),
         torch.ones_like(free6),
     ))
+    terms = _fixed_terms(problem, config)
+    # M and b share one buffer, zeroed by one fill per iteration; each
+    # iteration adds its sq into its own slot of the history
+    Mb = torch.empty((36 * n * n + 6 * n,), dtype=torch.float32, device=dev)
+    M, b = Mb[: 36 * n * n].view(6 * n, 6 * n), Mb[36 * n * n:]
+    hist = torch.zeros((config.iters,), dtype=torch.float32, device=dev)
     ok = torch.ones((), dtype=torch.bool, device=dev)
-    hist = []
-    for _ in range(config.iters):
-        M, b, sq = _assemble_blocks(problem, config, R, t)
-        M = M * free6[:, None] * free6[None, :] + damp
+    for it in range(config.iters):
+        Mb.zero_()
+        _accumulate(problem, terms, R, t, M, b, hist[it])
+        A = torch.addcmul(damp, M, free66)
         rhs = -b * free6
-        L, info = torch.linalg.cholesky_ex(M)
+        L, info = torch.linalg.cholesky_ex(A)
         x = torch.cholesky_solve(rhs[:, None], L)[:, 0].reshape(n, 6)
         dw, dt = x[:, :3], x[:, 3:]
         finite = torch.isfinite(x).all() & (info == 0)
@@ -135,7 +120,6 @@ def solve_dense(problem: GNProblem, config: GNConfig, init_rotations,
         R = torch.einsum("nij,njk->nik", so3_exp(dw), R)
         t = t + dt
         ok = ok & finite
-        hist.append(sq)
     warped = ed_warp(
         problem.source_points, problem.nodes, R, t, problem.point_anchors,
         problem.point_weights,
@@ -146,5 +130,5 @@ def solve_dense(problem: GNProblem, config: GNConfig, init_rotations,
     t = torch.where(nv[:, None], t, torch.zeros_like(t))
     return GNResult(
         rotations=R, translations=t, warped_points=warped,
-        residual_history=torch.stack(hist), valid=ok,
+        residual_history=hist, valid=ok,
     )

@@ -36,6 +36,14 @@ def random_pose_field(n, seed, rot=0.3, trans=0.04):
     return R, t
 
 
+def hat_entry(v, i, j):
+    """hat(v)[i][j] by the index rule of the CUDA kernels' hat_entry
+    (occlusionfusion_tpu_torch/csrc/accumulate.cuh), over v's last axis."""
+    if j == i:
+        return np.zeros_like(v[..., 0])
+    return -v[..., (i + 2) % 3] if j == (i + 1) % 3 else v[..., (i + 1) % 3]
+
+
 def assert_knn_equivalent(d2_a, idx_a, d2_b, idx_b, queries, refs, atol):
     """Two k-NN results agree: sorted distances within ``atol``, and every
     row's anchor set equal except where the two differ only among refs at
