@@ -7,52 +7,61 @@ NVIDIA card.
 
 ``--ptxas`` prints each kernel's registers and spills; ``--profile``
 traces frames 2-16 of the paths `main_path` and `envelope_flow` with
-torch.profiler and prints the device time by kernel name and the
-device's busy share over each traced window. The frames/s of a
-``--profile`` run include the profiler's start-up; read them from a run
-without it.
+torch.profiler and prints the device time by kernel name, the device's
+busy share over each traced window and the device ops per frame. The
+frames/s of a ``--profile`` run include the profiler's start-up; read
+them from a run without it.
 
 Phases, each printing one JSON line with its wall seconds:
   1. device: the card, and `nvidia-smi --query-gpu=name,power.limit`;
   2. build: nvcc builds the port's kernels (csrc/*.cu) into one library;
   3. kernels: each hand-written kernel against its plain PyTorch twin on
-     the card, at the shapes the main path gives it, with its time, the
-     twin's time and the least time the card could take (bound); K3' and
-     K4' add into the dense system (M, b, sq) and are held to their
-     accumulating twins on random inputs here;
+     the card, at the shapes the main path gives it, on random inputs,
+     with its time, the twin's time and the least time the card could
+     take (bound) for those inputs; K3' and K4' add into the dense system
+     (M, b, sq) and are held to their accumulating twins;
   4. main path: DynamicFusion.initialize + build_fused, then 16 frames of
      the fused loop (dense Gauss-Newton + motion GNN) on an analytic
      deforming sphere at 128^3 voxels (dense) / 448x640 / 512 nodes /
      8192 points, the sphere at 3 m; the sphere must be tracked and K1,
      K2, K3', K4' must have been launched by this phase, K3' and K4' four
-     times per frame; the GN input of frame 8 is kept;
-  5. gn_path: K3' and K4' against their twins again on that input, where
-     the anchors share pairs as the real surface makes them, with their
-     bounds for it, and `_assemble_blocks` timed on it (assembly_ms);
-  6. envelope_flow: the same sphere, textured, through the reference
+     times per frame; the GN input of frame 8 is kept, and so are the
+     inputs of K1's two calls in initialize (the voxel centres and the
+     model points) and of K2's warp at frame 8;
+  5. k12_path: K1 and K2 against their twins again on those inputs (the
+     lattice voxel centres and the model points against the path's node
+     table; the path's skin table and warp field, ~5% of the voxels
+     reachable), timed with their bounds for them;
+  6. gn_path: K3' and K4' against their twins again on the GN input,
+     where the anchors share pairs as the real surface makes them, with
+     their bounds for it, and `_assemble_blocks` timed on it
+     (assembly_ms);
+  7. envelope_flow: the same sphere, textured, through the reference
      envelope of bench.py: a bricked 128^3 volume (bricks of 8, 1024
      slots), PWC flow + MaskNet (checkpoints/flow.npz) filling points
      without a projective target, and the motion GNN; it must track,
      flow must fill points, and all four kernels must have been
      launched, K3' and K4' four times per frame;
-  7. near: the main path's settings with the sphere at 1 m, at half the
+  8. near: the main path's settings with the sphere at 1 m, at half the
      image, where the reference algorithm overshoots the motion; the card
      must reproduce the JAX package's result (NEAR_REFERENCE_Z);
-  8. parity: both paths at a small size on the card (kernels) and on the
+  9. parity: both paths at a small size on the card (kernels) and on the
      CPU (twins) must agree.
-Then one JSON line with the kernel table (K1 and K2 on the phase-3
-inputs, K3' and K4' on the main path's; launches counted in
-envelope_flow; both paths run all four kernels), the card's name and
-power limit, and as the last line {"ok": true, "device": {...}}. Any
-failed check raises and exits nonzero. Without a CUDA device, or without
-the port's package beside this file, it exits nonzero and prints no
-result. It imports nothing of JAX or of the JAX package.
+Then one JSON line with the kernel table (every kernel on the main
+path's own inputs, K1 on each of its two; launches counted in
+envelope_flow; both paths run all four kernels), the card's name and power limit, and as the last line
+{"ok": true, "device": {...}}. Any failed check raises and exits
+nonzero. Without a CUDA device, or without the port's package beside
+this file, it exits nonzero and prints no result. It imports nothing of
+JAX or of the JAX package.
 
 ``--gn-compare`` runs, for each TREE in the order given and each in its
-own process, the main path to frame 8 with that tree's package and then
-times and traces one Gauss-Newton solve on its input (gn_profile_tree):
-the order parent, change, change, parent compares two commits on one
-card.
+own process, the main path to frame 8 with that tree's package, then
+times and traces one Gauss-Newton solve on its input and three more
+fused steps (gn_profile_tree), and checks and times K1 and K2 on the
+path's inputs and on the random ones of phase 3 (knn_row, lbs_row,
+through the wrappers' public signatures): the order parent, change,
+change, parent compares two commits on one card.
 """
 
 from __future__ import annotations
@@ -205,32 +214,50 @@ def bound_ms(n_bytes: float, n_flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernels(dev):
-    """Each kernel against its twin at the main path's shapes."""
+def k12_random_inputs(dev):
+    """K1's and K2's inputs of the kernel phase, made from SEED: P = VOL^3
+    voxel centres drawn uniformly in the volume, N = MAX_NODES random
+    nodes of which the first 300 are valid, 80% of the voxels valid, a
+    random rotation and translation per node. Returns the generator (the
+    GN inputs draw on from it) and the tensors."""
     import torch
 
-    from occlusionfusion_tpu_torch.fusion.warpfield import WarpFieldState
     from occlusionfusion_tpu_torch.geometry.so3 import so3_exp
-    from occlusionfusion_tpu_torch.ops import knn, lbs
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def rand(*shape):
         return torch.rand(*shape, generator=gen, device=dev)
 
-    rows = []
     extent = VOL * VOXEL
-    P_vox, N, K = VOL ** 3, MAX_NODES, 4
-    n_valid = 300
-
-    # K1: voxel centres against graph nodes (the keyframe voxel skinning)
-    q = (rand(P_vox, 3) - 0.5) * extent + torch.tensor([0, 0, 1.0], device=dev)
+    P, N = VOL ** 3, MAX_NODES
+    q = (rand(P, 3) - 0.5) * extent + torch.tensor([0, 0, 1.0], device=dev)
     nodes = (rand(N, 3) - 0.5) * 0.3 + torch.tensor([0, 0, 1.0], device=dev)
-    node_valid = torch.arange(N, device=dev) < n_valid
+    node_valid = torch.arange(N, device=dev) < 300
+    vox_valid = rand(P) > 0.2
+    R = so3_exp((rand(N, 3) - 0.5) * 0.4)
+    t = (rand(N, 3) - 0.5) * 0.05
+    return gen, q, nodes, node_valid, vox_valid, R, t
+
+
+def knn_row(label, q, nodes, node_valid):
+    """K1 against its twin on one input: d2 within 1e-5, anchor sets equal
+    apart from refs at equal distance, no invalid anchor, and the count of
+    rows whose d2 or indices are not bit-identical to the twin's; timed
+    (ms: device time from a CUDA graph; call_ms: back to back through the
+    wrapper) with the bound of this input: P x N_valid x 7 flop (the refs
+    a valid mask leaves), or its bytes. Returns the row and the twin's
+    (d2, idx). Uses only the public knn_cuda / knn_torch signatures."""
+    import torch
+
+    from occlusionfusion_tpu_torch.ops import knn
+
+    P, N, K = q.shape[0], nodes.shape[0], 4
     d2_k, idx_k = knn.knn_cuda(q, nodes, K, node_valid)
     d2_t, idx_t = knn.knn_torch(q, nodes, K, node_valid)
     torch.cuda.synchronize()
     err_d2 = float((d2_k - d2_t).abs().max())
+    not_bitwise = int(((d2_k != d2_t).any(1) | (idx_k != idx_t).any(1)).sum())
     set_diff = torch.any(
         torch.sort(idx_k, 1)[0] != torch.sort(idx_t, 1)[0], dim=1
     )
@@ -242,56 +269,103 @@ def phase_kernels(dev):
         true_k = ((nodes.double()[idx_k[rowsel].long()] - qq[:, None]) ** 2).sum(-1)
         true_t = ((nodes.double()[idx_t[rowsel].long()] - qq[:, None]) ** 2).sum(-1)
         tie_err = float((torch.sort(true_k, 1)[0] - torch.sort(true_t, 1)[0]).abs().max())
-        assert tie_err <= 1e-5, f"K1 anchor sets differ beyond ties: {tie_err}"
-    assert err_d2 <= 1e-5, f"K1 d2 error {err_d2}"
-    assert bool(node_valid[idx_k.long()].all()), "K1 picked an invalid ref"
-    ms, ms_lo, ms_hi = cuda_ms(lambda: knn.knn_cuda(q, nodes, K, node_valid),
-                               10)
+        assert tie_err <= 1e-5, (
+            f"K1 ({label}) anchor sets differ beyond ties: {tie_err}")
+    assert err_d2 <= 1e-5, f"K1 ({label}) d2 error {err_d2}"
+    assert bool(node_valid[idx_k.long()].all()), (
+        f"K1 ({label}) picked an invalid ref")
+    del d2_k, idx_k
+    ms, ms_lo, ms_hi = graph_ms(lambda: knn.knn_cuda(q, nodes, K, node_valid),
+                                10)
+    call = cuda_ms(lambda: knn.knn_cuda(q, nodes, K, node_valid), 10)[0]
     plain = cuda_ms(lambda: knn.knn_torch(q, nodes, K, node_valid), 1, 3)[0]
-    b, by = bound_ms(P_vox * 12 + N * 12 + N * 4 + P_vox * K * 8,
-                     P_vox * N * 9)
-    rows.append(dict(
+    n_valid = int(node_valid.sum())
+    b, by = bound_ms(P * 12 + N * 13 + P * K * 8, P * n_valid * 7)
+    row = dict(
         name="knn", route="cuda",
         source="occlusionfusion_tpu_torch/csrc/knn.cu",
         replaces="occlusionfusion_tpu/ops/knn.py:100",
-        max_abs_err=err_d2, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-        library_ms=None, shape=f"P={P_vox} N={N} k={K}",
+        max_abs_err=err_d2, ms=ms, ms_min=ms_lo, ms_max=ms_hi, call_ms=call,
+        plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
+        input=label, P=P, N=N, N_valid=n_valid,
+        # the bound counted over all N refs at 9 flop a pair (PR 4-6)
+        bound_ms_all_refs=bound_ms(0, P * N * 9)[0],
+        rows_not_bit_identical=not_bitwise,
         anchor_set_rows_differing=n_set_diff,
-    ))
-    emit({"phase": "kernel", "name": "knn", "max_abs_err_d2": err_d2,
-          "anchor_set_rows_differing": n_set_diff, "ms": ms,
-          "ms_min": ms_lo, "ms_max": ms_hi,
-          "plain_ms": plain, "bound_ms": b})
+    )
+    return row, (d2_t, idx_t)
 
-    # K2: the voxel LBS warp through those anchors
-    sigma2 = 0.05 ** 2
-    w = torch.exp(-d2_k / (2 * sigma2))
-    w = w / (w.sum(-1, keepdim=True) + 1e-6)
-    vox_valid = rand(P_vox) > 0.2
-    R = so3_exp((rand(N, 3) - 0.5) * 0.4)
-    t = (rand(N, 3) - 0.5) * 0.05
-    warp = WarpFieldState(nodes, node_valid, R, t)
-    y_k = lbs.lbs_warp_cuda(q, idx_k, w, vox_valid, warp)
-    y_t = lbs.lbs_warp_torch(q, idx_k, w, vox_valid, warp)
+
+def lbs_row(label, points, anchors, weights, valid, warp):
+    """K2 against its twin on one input: valid points within 2e-4 m,
+    invalid ones passed through bit for bit; timed as knn_row does, with
+    the bound of this input: 25 bytes per point, 32 more per valid one,
+    and the node table. Uses only the public lbs_warp_cuda /
+    lbs_warp_torch signatures."""
+    import torch
+
+    from occlusionfusion_tpu_torch.ops import lbs
+
+    P, N, K = points.shape[0], warp.node_positions.shape[0], 4
+    args = (points, anchors, weights, valid, warp)
+    y_k = lbs.lbs_warp_cuda(*args)
+    y_t = lbs.lbs_warp_torch(*args)
     torch.cuda.synchronize()
     err = float((y_k - y_t).abs().max())
-    assert err <= 2e-4, f"K2 error {err} m"
-    ms, ms_lo, ms_hi = cuda_ms(
-        lambda: lbs.lbs_warp_cuda(q, idx_k, w, vox_valid, warp), 50)
-    plain = cuda_ms(
-        lambda: lbs.lbs_warp_torch(q, idx_k, w, vox_valid, warp), 5)[0]
-    b, by = bound_ms(P_vox * (12 + K * 4 + K * 4 + 1 + 12) + N * 48,
-                     P_vox * (K * 24 + 18))
-    rows.append(dict(
+    assert err <= 2e-4, f"K2 ({label}) error {err} m"
+    assert torch.equal(y_k[~valid], points[~valid]), (
+        f"K2 ({label}) changed an invalid point")
+    del y_k, y_t
+    ms, ms_lo, ms_hi = graph_ms(lambda: lbs.lbs_warp_cuda(*args), 50)
+    call = cuda_ms(lambda: lbs.lbs_warp_cuda(*args), 50)[0]
+    plain = cuda_ms(lambda: lbs.lbs_warp_torch(*args), 5)[0]
+    n_valid = int(valid.sum())
+    b, by = bound_ms(P * 25 + n_valid * K * 8 + N * 60,
+                     n_valid * (K * 24 + 18))
+    return dict(
         name="lbs_warp", route="cuda",
         source="occlusionfusion_tpu_torch/csrc/lbs.cu",
         replaces="occlusionfusion_tpu/ops/lbs.py:89",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-        library_ms=None, shape=f"P={P_vox} N={N} K={K}",
-    ))
-    emit({"phase": "kernel", "name": "lbs_warp", "max_abs_err_m": err,
-          "ms": ms, "ms_min": ms_lo, "ms_max": ms_hi, "plain_ms": plain,
-          "bound_ms": b})
+        max_abs_err=err, ms=ms, ms_min=ms_lo, ms_max=ms_hi, call_ms=call,
+        plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
+        input=label, P=P, N=N, valid_points=n_valid,
+        valid_share=n_valid / P,
+        # every point's anchors and weights counted (PR 4-6)
+        bound_ms_all_points=bound_ms(
+            P * (12 + K * 4 + K * 4 + 1 + 12) + N * 48, 0)[0],
+    )
+
+
+def k12_random_rows(dev):
+    """K1 and K2 on the kernel phase's random input (K2 through the
+    twin's anchors, so that every tree gets the same input). Returns the
+    rows, the generator and the tensors the GN inputs are built from."""
+    import torch
+
+    from occlusionfusion_tpu_torch.fusion.warpfield import WarpFieldState
+
+    gen, q, nodes, node_valid, vox_valid, R, t = k12_random_inputs(dev)
+    knn_r, (d2, idx) = knn_row("random", q, nodes, node_valid)
+    sigma2 = 0.05 ** 2
+    w = torch.exp(-d2 / (2 * sigma2))
+    w = w / (w.sum(-1, keepdim=True) + 1e-6)
+    warp = WarpFieldState(nodes, node_valid, R, t)
+    lbs_r = lbs_row("random", q, idx, w, vox_valid, warp)
+    return [knn_r, lbs_r], gen, (q, nodes, idx, w, R, t)
+
+
+def phase_kernels(dev):
+    """Each kernel against its twin at the main path's shapes."""
+    import torch
+
+    rows, gen, (q, nodes, idx_k, w, R, t) = k12_random_rows(dev)
+    for r in rows:
+        emit({"phase": "kernel", **r})
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=dev)
+
+    N, K = MAX_NODES, 4
 
     # K3' and K4' on random inputs: fractional point weights; 8 edge
     # slots per node, a fifth of them invalid (index -1 clamped to 0,
@@ -321,7 +395,7 @@ def phase_kernels(dev):
     spread = torch.argsort(rand(P, N), dim=1)[:, :K].to(torch.int32)
     emit({"phase": "kernel", "input": "spread", "rows": gn_kernel_rows(
         "spread", point_args[:3] + (spread.contiguous(),) + point_args[4:])})
-    del q, d2_k, d2_t, idx_k, idx_t, y_k, y_t
+    del q, idx_k, w
     torch.cuda.empty_cache()
     return rows
 
@@ -419,9 +493,11 @@ def profiled(enabled):
     return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
 
-def report_profile(prof, wall_s, path):
-    """Device time by kernel name over the traced window, and the share of
-    the window the device was busy (sum of kernel times / wall)."""
+def report_profile(prof, wall_s, path, frames):
+    """Device time by kernel name over the traced window of ``frames``
+    frames, the share of the window the device was busy (sum of kernel
+    times / wall), and the device ops (kernels, fills, copies) per
+    frame."""
     from torch.autograd import DeviceType
 
     rows = []
@@ -440,6 +516,7 @@ def report_profile(prof, wall_s, path):
     emit({"phase": "profile", "path": path, "window_s": wall_s,
           "device_busy_s": busy_us / 1e6,
           "device_busy_share": busy_us / 1e6 / wall_s,
+          "device_ops_per_frame": sum(r[2] for r in rows) / frames,
           "top": [{"name": k[:80], "ms": dt / 1e3, "calls": c}
                   for dt, k, c in rows[:25]]})
 
@@ -519,7 +596,7 @@ def drive_path(path, dev, seq, cfg, net, profile, **nets):
         t_frames = time.perf_counter() - t1
     counts = dict(D.launch_counts)
     if prof is not None:
-        report_profile(prof, t_window, path)
+        report_profile(prof, t_window, path, len(seq) - 2)
     fusion.adopt_fused_state(state)
     n = len(seq) - 1
     timings = {
@@ -591,9 +668,60 @@ class SolveTap:
         self.mod.solve_dense = self.orig
 
 
+class KernelInputTap:
+    """Within the block, keeps the arguments K1 and K2 receive on the
+    path: those of every k-NN call, by query count (``knn``, P -> call;
+    ``initialize`` skins the voxel centres and the model points), and
+    those of the ``at``-th LBS voxel warp (that of frame ``at``). Patches
+    the names the path calls (``skinning.knn``, ``fused_step.lbs_warp``),
+    which every tree of the port has."""
+
+    def __init__(self, at):
+        self.at, self.lbs_calls, self.knn, self.lbs = at, 0, {}, None
+
+    def __enter__(self):
+        from occlusionfusion_tpu_torch.fusion import fused_step
+        from occlusionfusion_tpu_torch.geometry import skinning
+
+        self.mods = (skinning, fused_step)
+        self.orig = (skinning.knn, fused_step.lbs_warp)
+        knn, lbs_warp = self.orig
+
+        def knn_tap(queries, refs, k, valid=None):
+            self.knn[queries.shape[0]] = (
+                queries.clone(), refs.clone(), k,
+                None if valid is None else valid.clone())
+            return knn(queries, refs, k, valid=valid)
+
+        def lbs_tap(points, anchors, weights, valid, state):
+            self.lbs_calls += 1
+            if self.lbs_calls == self.at:
+                self.lbs = (points, anchors, weights, valid, state)
+            return lbs_warp(points, anchors, weights, valid, state)
+
+        skinning.knn = knn_tap
+        fused_step.lbs_warp = lbs_tap
+        return self
+
+    def __exit__(self, *exc):
+        self.mods[0].knn, self.mods[1].lbs_warp = self.orig
+
+
+def k12_path_rows(knn_calls, lbs_call):
+    """K1 on each k-NN call of the main path's ``initialize`` (the
+    lattice voxel centres and the model points, each against its node
+    table and node_valid), most queries first; K2 on the main path's
+    voxel warp at frame TAP_FRAME (its skin table and warp field)."""
+    rows = []
+    for P in sorted(knn_calls, reverse=True):
+        q, refs, _, valid = knn_calls[P]
+        rows.append(knn_row(f"main_path_initialize_P{P}", q, refs, valid)[0])
+    return rows + [lbs_row(f"main_path_frame_{TAP_FRAME}", *lbs_call)]
+
+
 def phase_main_path(dev, profile=False):
-    """Returns the launch counts and the main path's Gauss-Newton input
-    at frame TAP_FRAME."""
+    """Returns the launch counts, the main path's Gauss-Newton input at
+    frame TAP_FRAME and the K1 and K2 inputs KernelInputTap keeps."""
     import numpy as np
 
     from occlusionfusion_tpu_torch.models.checkpoint import (
@@ -603,7 +731,7 @@ def phase_main_path(dev, profile=False):
     seq, centers = sphere_sequence(N_FRAMES + 1, IMG_H, IMG_W, RADIUS, STEP_Z,
                                    DISTANCE)
     net = load_motion_complete_net(device=dev)
-    with SolveTap(TAP_FRAME) as tap:
+    with SolveTap(TAP_FRAME) as tap, KernelInputTap(TAP_FRAME) as ktap:
         fusion, state, tables, info_np, timings, counts = drive_path(
             "main_path", dev, seq, sphere_config(), net, profile)
     out = {
@@ -623,7 +751,7 @@ def phase_main_path(dev, profile=False):
           "node_translation_z_quantiles_10_50_90": np.quantile(
               trans[:, 2], [0.1, 0.5, 0.9]).tolist(),
           "sphere_motion": motion.tolist()})
-    return counts, tap.call
+    return counts, tap.call, (ktap.knn, ktap.lbs)
 
 
 def gn_path_inputs(call):
@@ -823,17 +951,40 @@ def phase_parity(dev):
             assert sum(i["n_flow_filled"] for i in ig) > 0, "no flow fill"
 
 
-def gn_profile_tree(tree, dev="cuda", ptxas=False):
-    """One tree's Gauss-Newton solve on the main path's input at frame
-    TAP_FRAME: ms per call of ``_assemble_blocks`` and of ``solve_dense``
-    back to back (CUDA events; paced by the host where it is slower than
-    the device), the host ms to enqueue one solve, and a torch.profiler
-    trace of 5 assemblies and 5 solves (device ms and device ops, that is
-    kernels, fills and copies, per call; device ms by kernel per solve).
-    Uses only what every tree of the port has, so it times a parent
-    commit's tree as well."""
+def traced_device(fn, reps):
+    """torch.profiler over ``reps`` calls of ``fn``: {kernel name:
+    (device us, count)} summed over the calls."""
     import torch
     from torch.autograd import DeviceType
+
+    with profiled(True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dt = getattr(ev, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "self_cuda_time_total", 0)
+        us, n = by_kernel.get(ev.key, (0.0, 0))
+        by_kernel[ev.key] = (us + dt, n + ev.count)
+    return by_kernel
+
+
+def gn_profile_tree(tree, dev="cuda", ptxas=False):
+    """One tree's Gauss-Newton solve on the main path's input at frame
+    TAP_FRAME (after ``initialize`` + ``build_fused``, timed as init_s):
+    ms per call of ``_assemble_blocks`` and of ``solve_dense``
+    back to back (CUDA events; paced by the host where it is slower than
+    the device), the host ms to enqueue one solve, and a torch.profiler
+    trace of 5 assemblies, 5 solves and 3 frames (device ms and device
+    ops, that is kernels, fills and copies, per call; device ms by kernel
+    per solve). Then K1 and K2 on the kernel phase's random input and on
+    the main path's own (knn_row, lbs_row). Uses only what every tree of
+    the port has, so it times a parent commit's tree as well."""
+    import torch
 
     import occlusionfusion_tpu_torch as pkg
     from occlusionfusion_tpu_torch import device as D
@@ -849,10 +1000,14 @@ def gn_profile_tree(tree, dev="cuda", ptxas=False):
     seq, _ = sphere_sequence(TAP_FRAME + 1, IMG_H, IMG_W, RADIUS, STEP_Z,
                              DISTANCE)
     net = load_motion_complete_net(device=dev)
-    with SolveTap(TAP_FRAME) as tap:
+    with SolveTap(TAP_FRAME) as tap, KernelInputTap(TAP_FRAME) as ktap:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fusion = DynamicFusion(seq, sphere_config(), device=dev)
         fusion.initialize(seq.load(0))
         sc, state, tables = fusion.build_fused(net)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
         for i in range(1, len(seq)):
             state, _ = fusion.register_frame_fused(sc, state, tables,
                                                    seq.load(i), net)
@@ -867,7 +1022,7 @@ def gn_profile_tree(tree, dev="cuda", ptxas=False):
         host.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     out = {"phase": "gn_profile", "tree": tree, "package": pkg.__file__,
-           "iters": config.iters, "assembly_call_ms": asm[0],
+           "init_s": init_s, "iters": config.iters, "assembly_call_ms": asm[0],
            "assembly_call_ms_min_max": asm[1:], "solve_ms": solve[0],
            "solve_ms_min_max": solve[1:],
            "solve_host_enqueue_ms": sorted(host)[len(host) // 2]}
@@ -876,19 +1031,7 @@ def gn_profile_tree(tree, dev="cuda", ptxas=False):
         ("assembly", lambda: GND._assemble_blocks(problem, config, R, t)),
         ("solve", lambda: GND.solve_dense(problem, config, R, t)),
     ):
-        with profiled(True) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        by_kernel = {}
-        for ev in prof.key_averages():
-            if ev.device_type != DeviceType.CUDA:
-                continue
-            dt = getattr(ev, "self_device_time_total", None)
-            if dt is None:
-                dt = getattr(ev, "self_cuda_time_total", 0)
-            us, n = by_kernel.get(ev.key, (0.0, 0))
-            by_kernel[ev.key] = (us + dt, n + ev.count)
+        by_kernel = traced_device(fn, reps)
         out[f"{what}_device_ms_traced"] = sum(
             v[0] for v in by_kernel.values()) / 1e3 / reps
         out[f"{what}_device_ops"] = sum(
@@ -898,7 +1041,20 @@ def gn_profile_tree(tree, dev="cuda", ptxas=False):
                 {"name": k[:80], "ms": us / 1e3 / reps, "calls": n / reps}
                 for k, (us, n) in sorted(by_kernel.items(),
                                          key=lambda kv: -kv[1][0])[:15]]
+    # three more steps on the last frame: the fused step's device ops
+    frame = seq.load(TAP_FRAME)
+    frame_ops = traced_device(lambda: fusion.register_frame_fused(
+        sc, state, tables, frame, net), 3)
+    out["frame_device_ms_traced"] = sum(
+        v[0] for v in frame_ops.values()) / 1e3 / 3
+    out["frame_device_ops"] = sum(v[1] for v in frame_ops.values()) / 3
     emit(out)
+    del problem, config, R, t, tap, fusion, sc, state, tables, frame
+    rows = k12_path_rows(ktap.knn, ktap.lbs)
+    del ktap
+    rows += k12_random_rows(dev)[0]
+    torch.cuda.empty_cache()
+    emit({"phase": "k12_profile", "tree": tree, "rows": rows})
 
 
 def gn_compare(trees, ptxas=False):
@@ -963,14 +1119,22 @@ def main(argv) -> int:
 
     profile = "--profile" in argv
     t = time.perf_counter()
-    _, call = phase_main_path(dev, profile)
+    _, call, k12_calls = phase_main_path(dev, profile)
     emit({"phase": "main_path_done", "s": time.perf_counter() - t})
 
     t = time.perf_counter()
-    # the kernels line carries K3' and K4' on the main path's own input
-    by_name = {r["name"]: r for r in rows}
-    by_name.update((r["name"], r) for r in phase_gn_path(call))
-    rows = list(by_name.values())
+    # the kernels line carries every kernel on the main path's own
+    # inputs: K1 once for each of its calls there
+    path_rows = k12_path_rows(*k12_calls)
+    for r in path_rows:
+        emit({"phase": "kernel", **r})
+    del k12_calls
+    emit({"phase": "k12_path_done", "s": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    path_rows += phase_gn_path(call)
+    assert {r["name"] for r in path_rows} == {r["name"] for r in rows}
+    rows = path_rows
     del call
     emit({"phase": "gn_path_done", "s": time.perf_counter() - t})
 
@@ -990,7 +1154,7 @@ def main(argv) -> int:
         row["launches"] = counts[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "library_ms", "input")
     emit({"total_s": time.perf_counter() - t_all})
     emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
     print(smi, flush=True)

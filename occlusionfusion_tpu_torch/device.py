@@ -46,6 +46,11 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC",
 ]
 
+# the most shared memory one block may take on the H100 (227 KB); the
+# wrappers refuse inputs whose tables would not fit before any launch, and
+# the launchers check the device's own figure
+SMEM_PER_BLOCK = 232448
+
 launch_counts = {
     "knn": 0, "lbs_warp": 0, "point_term_blocks": 0, "arap_term_blocks": 0,
 }
@@ -60,10 +65,11 @@ _F = ctypes.c_float
 # C signatures of the exported launchers (csrc/*.cu); each returns the
 # cudaError_t of its launch
 _SIGNATURES = {
-    # q, r, rsq, bias, P, N, k, d2_out, idx_out, stream
-    "of_knn": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP, _VP],
-    # pts, anchors, weights, valid, T12, P, K, N, out, stream
-    "of_lbs_warp": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP],
+    # q, r, valid (or null), P, N, k, d2_out, idx_out, stream
+    "of_knn": [_VP, _VP, _VP, _I, _I, _I, _VP, _VP, _VP],
+    # pts, anchors, weights, valid, nodes, R, t, P, K, N, out, stream
+    "of_lbs_warp": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP,
+                    _VP],
     # pts, tgt, pv, anchors, weights, nodes, R, t, sw, P, N, M, b, sq,
     # stream
     "of_point_term_accumulate": [
@@ -175,6 +181,15 @@ def check_cuda_tensor(name: str, x: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def check_aligned(name: str, x: torch.Tensor, n_bytes: int) -> None:
+    """Raise unless ``x``'s first element sits on an ``n_bytes`` boundary
+    (a kernel that reads it in vectors of that size needs it)."""
+    if x.data_ptr() % n_bytes:
+        raise ValueError(f"{name}: expected a {n_bytes}-byte-aligned tensor "
+                         f"(the kernel reads it in {n_bytes}-byte vectors), "
+                         f"got address {x.data_ptr():#x}")
 
 
 def tensors_device(**tensors) -> torch.device:

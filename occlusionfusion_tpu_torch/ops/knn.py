@@ -20,6 +20,11 @@ match the reference's bit for bit and not only to rounding:
   |r|^2 = (rx*rx + ry*ry) + rz*rz
   d2    = ((|q|^2 - 2 q.r) + |r|^2) + bias      (bias 1e30 on invalid refs)
 The twin forms each fused multiply-add in f64 and rounds it once to f32.
+The kernel stages each ref as (-2 r, |r|^2): scaling by -2 is exact, so
+fma(qz, -2rz, fma(qy, -2ry, qx*(-2rx))) is -2 q.r bit for bit and
+(|q|^2 + that) + |r|^2 rounds as d2 above, with no bias: it computes the
+valid refs only and gives the lowest-index invalid ones d2 = 1e30 where
+fewer than k are valid, as the bias does.
 """
 
 from __future__ import annotations
@@ -84,25 +89,39 @@ def knn_torch(queries, refs, k: int, valid=None):
     return torch.cat(d2s), torch.cat(idxs)
 
 
+# the most refs K1 stages in shared memory on the H100: 20 bytes each
+# beside the kernel's 128 bytes of static shared memory
+MAX_REFS = (D.SMEM_PER_BLOCK - 128) // 20
+
+
 def knn_cuda(queries, refs, k: int, valid=None):
     """Kernel K1 (``csrc/knn.cu``). Bound on the H100 by its f32
-    operations (9 per query-ref pair); see the note in the source."""
+    operations (7 per query and valid ref); see the note in the source.
+    The kernel reads ``valid`` itself (None: every ref valid) and forms
+    |r|^2 from ``refs``."""
     P, N = queries.shape[0], refs.shape[0]
     if k != 4 or N < 4:
         raise ValueError(f"knn kernel takes k == 4 and >= 4 refs, got "
                          f"k={k}, {N} refs")
-    dev = D.tensors_device(queries=queries, refs=refs)
+    if N > MAX_REFS:
+        raise ValueError(f"knn kernel stages at most {MAX_REFS} refs in "
+                         f"shared memory ({D.SMEM_PER_BLOCK} bytes), "
+                         f"got {N}")
+    dev = D.tensors_device(queries=queries, refs=refs,
+                           **({} if valid is None else {"valid": valid}))
     D.check_cuda_tensor("queries", queries, torch.float32, (None, 3))
     D.check_cuda_tensor("refs", refs, torch.float32, (None, 3))
-    ref_sq = _sq3(refs).contiguous()
-    bias = _bias(valid, N, refs).contiguous()
+    if valid is not None:
+        valid = valid.to(torch.bool).contiguous()
+        D.check_cuda_tensor("valid", valid, torch.bool, (N,))
     d2 = torch.empty((P, k), dtype=torch.float32, device=dev)
     idx = torch.empty((P, k), dtype=torch.int32, device=dev)
     if P == 0:
         return d2, idx
     D.launch(
-        "of_knn", dev, queries.data_ptr(), refs.data_ptr(), ref_sq.data_ptr(),
-        bias.data_ptr(), P, N, k, d2.data_ptr(), idx.data_ptr(),
+        "of_knn", dev, queries.data_ptr(), refs.data_ptr(),
+        None if valid is None else valid.data_ptr(), P, N, k, d2.data_ptr(),
+        idx.data_ptr(),
     )
     D.launch_counts["knn"] += 1
     return d2, idx

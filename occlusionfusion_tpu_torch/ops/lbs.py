@@ -4,8 +4,11 @@
 kernel ``lbs_warp_pallas``) on CUDA tensors and runs the plain twin
 ``lbs_warp_torch`` (the port of ``lbs_warp_lax``: gather + einsum through
 ``warpfield.deform_points``) on CPU tensors. The kernel works in origin
-form, y = (sum_k w_k R_k) x + sum_k w_k t'_k; invalid points pass
-through. The two forms agree to ~1e-6 m at metre scale.
+form, y = (sum_k w_k R_k) x + sum_k w_k t'_k, and forms the table of
+t' = (t + g) - R g itself, in shared memory, from the warp field's
+tensors; invalid points pass through. The two forms agree to ~1e-6 m at
+metre scale. ``pack_transforms`` builds the same table with torch ops,
+as the JAX package's ``_pack_transforms`` does.
 """
 
 from __future__ import annotations
@@ -32,31 +35,47 @@ def lbs_warp_torch(points, anchors, weights, valid, state: WarpFieldState):
     return deform_points(state, points, SkinTable(anchors, weights, valid))
 
 
+# the most nodes whose origin-form table (48 bytes a node) K2 holds in
+# shared memory on the H100 beside its per-warp staging buffers (16 warps
+# x 96 floats)
+MAX_NODES = (D.SMEM_PER_BLOCK - 16 * 96 * 4) // 48
+
+
 def lbs_warp_cuda(points, anchors, weights, valid, state: WarpFieldState):
-    """Kernel K2. Bound on the H100 by device memory (57 bytes per
-    point); see the note in the source."""
+    """Kernel K2. Bound on the H100 by device memory (25 bytes per
+    voxel, 32 more per valid one); see the note in the source."""
     P, K = anchors.shape
     N = state.node_positions.shape[0]
     if K != 4:
         raise ValueError(f"LBS kernel takes K == 4 anchors, got {K}")
+    if N > MAX_NODES:
+        raise ValueError(
+            f"LBS kernel holds at most {MAX_NODES} nodes in shared memory "
+            f"({D.SMEM_PER_BLOCK} bytes), got {N}")
+    # the kernel reads a voxel's anchors and weights as one 16-byte load
+    D.check_aligned("anchors", anchors, 16)
+    D.check_aligned("weights", weights, 16)
+    nodes = state.node_positions.contiguous()
+    rot = state.rotations.contiguous()
+    trans = state.translations.contiguous()
     dev = D.tensors_device(
         points=points, anchors=anchors, weights=weights, valid=valid,
-        node_positions=state.node_positions, rotations=state.rotations,
-        translations=state.translations,
+        node_positions=nodes, rotations=rot, translations=trans,
     )
     D.check_cuda_tensor("points", points, torch.float32, (P, 3))
     D.check_cuda_tensor("anchors", anchors, torch.int32, (P, K))
     D.check_cuda_tensor("weights", weights, torch.float32, (P, K))
     D.check_cuda_tensor("valid", valid, torch.bool, (P,))
-    T = pack_transforms(state)
-    D.check_cuda_tensor("transforms", T, torch.float32, (N, 12))
+    D.check_cuda_tensor("node_positions", nodes, torch.float32, (N, 3))
+    D.check_cuda_tensor("rotations", rot, torch.float32, (N, 3, 3))
+    D.check_cuda_tensor("translations", trans, torch.float32, (N, 3))
     out = torch.empty((P, 3), dtype=torch.float32, device=dev)
     if P == 0:
         return out
     D.launch(
         "of_lbs_warp", dev, points.data_ptr(), anchors.data_ptr(),
-        weights.data_ptr(), valid.data_ptr(), T.data_ptr(), P, K, N,
-        out.data_ptr(),
+        weights.data_ptr(), valid.data_ptr(), nodes.data_ptr(),
+        rot.data_ptr(), trans.data_ptr(), P, K, N, out.data_ptr(),
     )
     D.launch_counts["lbs_warp"] += 1
     return out

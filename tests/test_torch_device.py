@@ -27,6 +27,7 @@ def launches(monkeypatch):
         def __getattr__(self, name):
             def fn(*args):
                 log.append(("kernel", name))
+                log.append(("args", args))
                 return 0
             return fn
 
@@ -86,7 +87,7 @@ def test_wrapper_launches_on_its_tensors_device(launches, name, dev):
     d = torch.device(dev)
     assert launches[0] == ("enter", d)
     assert launches[1] == ("stream", d)
-    assert launches[2][0] == "kernel" and launches[3] == ("exit", None)
+    assert launches[2][0] == "kernel" and launches[4] == ("exit", None)
     assert D.launch_counts[name] == 1
 
 
@@ -96,3 +97,39 @@ def test_wrapper_refuses_inputs_on_two_devices(launches, name):
     with pytest.raises(ValueError, match="different devices"):
         _calls("meta", node_dev="cpu")[name]()
     assert launches == [] and D.launch_counts[name] == 0
+
+
+# the C function each wrapper calls (csrc/*.cu)
+C_NAMES = {"knn": "of_knn", "lbs_warp": "of_lbs_warp",
+           "point_term_blocks": "of_point_term_accumulate",
+           "arap_term_blocks": "of_arap_term_accumulate"}
+
+
+@pytest.mark.parametrize("name", ["knn", "knn_with_valid", "lbs_warp",
+                                  "point_term_blocks", "arap_term_blocks"])
+def test_wrapper_arguments_follow_the_c_signature(launches, name):
+    """What each wrapper hands its launcher matches the ctypes argument
+    types in device._SIGNATURES, argument by argument: a pointer (or
+    None, a null pointer) where the C function takes void*, an int where
+    it takes int, a float where it takes float. The knn valid mask is
+    optional; without it K1 passes a null pointer."""
+    calls = _calls("meta")
+    calls["knn_with_valid"] = lambda: knn.knn_cuda(
+        torch.zeros((P, 3), device="meta"),
+        torch.zeros((N, 3), device="meta"), 4,
+        torch.ones(N, dtype=torch.bool, device="meta"))
+    calls[name]()
+    fn = launches[2][1]
+    assert fn == C_NAMES[name.replace("_with_valid", "")]
+    args = launches[3][1]
+    sig = D._SIGNATURES[fn]
+    assert len(args) == len(sig)
+    for i, (a, ctype) in enumerate(zip(args, sig)):
+        if ctype is D._VP:
+            assert a is None or isinstance(a, int), (fn, i, a)
+        elif ctype is D._I:
+            assert isinstance(a, int) and not isinstance(a, bool), (fn, i, a)
+        else:
+            assert isinstance(a, float), (fn, i, a)
+    if name.startswith("knn"):
+        assert (args[2] is None) == (name == "knn")
