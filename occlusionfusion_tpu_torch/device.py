@@ -14,14 +14,22 @@
 * ``launch(fn_name, dev, ...)`` runs a launcher on device ``dev`` and
   its current stream; each wrapper passes the device its tensors sit on
   (``tensors_device``, which refuses inputs on different devices).
-* ``launch_counts`` holds one counter per kernel. A wrapper adds one
-  where it launches its kernel and nowhere else. The GN kernels keep
-  the keys of the kernels they replaced (``point_term_blocks``,
-  ``arap_term_blocks``).
+* ``launch_counts`` holds one counter per kernel: the launches the card
+  ran. A wrapper adds one where it launches its kernel
+  (``count_launch``) and nowhere else. While a CUDA graph is captured
+  (``capturing``) the wrapper's launch is recorded, not run: it counts
+  into the graph's own counter instead, and every replay of the graph
+  adds those counts to ``launch_counts`` (``count_replay``). The GN
+  kernels keep the keys of the kernels they replaced
+  (``point_term_blocks``, ``arap_term_blocks``).
+* cuSOLVER is the linear-algebra library on the card: the Cholesky
+  factorization and solve of the Gauss-Newton step take it (not MAGMA)
+  inside captured graphs too.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import os
@@ -36,6 +44,8 @@ DEFAULT_DEVICE = "cuda"
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+if torch.backends.cuda.is_built():
+    torch.backends.cuda.preferred_linalg_library("cusolver")
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -87,9 +97,39 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(DEFAULT_DEVICE if device is None else device)
 
 
+# the counter of the graph being captured, or None
+_capture_counts = None
+
+
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name`` by its wrapper: into
+    ``launch_counts``, or into the counter of the graph being captured."""
+    counts = launch_counts if _capture_counts is None else _capture_counts
+    counts[name] += 1
+
+
+@contextlib.contextmanager
+def capturing():
+    """Within the block the wrappers' launches go into the dict it yields
+    (the launches a CUDA graph captured), not into ``launch_counts``."""
+    global _capture_counts
+    prev = _capture_counts
+    _capture_counts = dict.fromkeys(launch_counts, 0)
+    try:
+        yield _capture_counts
+    finally:
+        _capture_counts = prev
+
+
+def count_replay(captured: dict) -> None:
+    """One replay of a graph that captured ``captured`` launches."""
+    for k, n in captured.items():
+        launch_counts[k] += n
 
 
 def _nvcc() -> str:

@@ -7,12 +7,20 @@ per-node motion observations, motion completion, the dense Gauss-Newton
 warp solve, then the voxel LBS warp (kernel K2 on CUDA) and the TSDF
 integrate. The graph-dependent tables are device-resident constants
 between keyframes. Nothing in the step reads a value back to the host,
-so frames queue on the card back to back.
+so frames queue on the card back to back, and a CUDA graph can capture
+whole chunks of steps.
+
+``fused_register_chunk`` is the counterpart of the JAX ``lax.scan`` over
+a chunk of F frames: on the CPU it runs the F steps in order; on the card
+it replays one CUDA graph that holds all F steps, captured once per
+(step config, F) over static device buffers.
 
 Ported: ``solver="gn_dense"`` with projective correspondences, the
-motion GNN and flow in the JAX defaults' mode (fill, dense lift, MaskNet
-weights at full resolution); ``FusionConfig`` (``fusion/pipeline.py``)
-rejects the settings of the branches not ported.
+motion GNN, flow in fill mode with MaskNet weights (dense or sparse lift;
+the sparse lift with optional bf16 nets and a 1/N-resolution MaskNet),
+and the Lepard matcher every frame on a deterministic subsample of the
+target depth; ``FusionConfig`` (``fusion/pipeline.py``) rejects the
+settings of the branches not ported.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from occlusionfusion_tpu_torch.fusion import tsdf as T
 from occlusionfusion_tpu_torch.fusion import warpfield as W
@@ -33,8 +42,10 @@ from occlusionfusion_tpu_torch.fusion.motion_runner import (
     _unpack_pyramid,
     motion_step,
 )
+from occlusionfusion_tpu_torch import device as D
 from occlusionfusion_tpu_torch.fusion.flow_correspondence import (
     flow_correspondences,
+    flow_targets_at_points,
     sample_weight_field,
 )
 from occlusionfusion_tpu_torch.geometry.camera import (
@@ -42,6 +53,7 @@ from occlusionfusion_tpu_torch.geometry.camera import (
     backproject_depth,
     bilinear_sample,
 )
+from occlusionfusion_tpu_torch.models.lepard import scene_flow
 from occlusionfusion_tpu_torch.ops.lbs import lbs_warp
 from occlusionfusion_tpu_torch.solvers.gauss_newton import GNConfig, GNProblem
 from occlusionfusion_tpu_torch.solvers.gauss_newton_dense import solve_dense
@@ -93,6 +105,17 @@ class FusedStepConfig(NamedTuple):
     # for points without a projective target, where the sampled MaskNet
     # weight exceeds FLOW_MASK_THRESHOLD
     use_flow: bool = False
+    # "dense": lift every pixel, then sample at the model projections;
+    # "sparse": lift at the projections only (flow_targets_at_points)
+    flow_lift: str = "dense"
+    # sparse lift only: PWC + MaskNet in bfloat16, MaskNet at 1/N
+    flow_bf16: bool = False
+    mask_downscale: int = 1
+    # Lepard scene flow every frame on a deterministic subsample of the
+    # target depth ("topk" or "strided", lepard_max_target_points)
+    use_lepard: bool = False
+    lepard_max_target_points: int = 2048
+    lepard_subsample: str = "topk"
 
 
 def _rgbxyz_image(depth, color, intr: Intrinsics):
@@ -100,6 +123,31 @@ def _rgbxyz_image(depth, color, intr: Intrinsics):
     PWC/MaskNet input)."""
     xyz = backproject_depth(depth, intr)
     return torch.cat([color.permute(2, 0, 1) / 255.0, xyz.permute(2, 0, 1)])
+
+
+def _deterministic_target_subsample(depth, intr: Intrinsics, cap: int,
+                                    method: str = "topk"):
+    """Static-cap subsample of the target depth cloud on the device ->
+    (points [cap, 3], valid [cap]). Each valid pixel i has the key
+    (i * 2654435761 mod 2^32) >> 1 (Knuth's hash), invalid ones -1.
+    ``topk``: the ``cap`` largest keys (a stable sort: the lower index
+    first among equal keys, as ``lax.top_k``). ``strided``: ``cap``
+    contiguous flat blocks, each giving its largest key (the first among
+    equal ones, as ``argmax``), with no sort."""
+    pts = backproject_depth(depth, intr).reshape(-1, 3)
+    n = pts.shape[0]
+    idx = torch.arange(n, dtype=torch.int64, device=depth.device)
+    key = ((idx * 2654435761) & 0xFFFFFFFF) >> 1
+    key = torch.where(depth.reshape(-1) > 0, key, torch.full_like(key, -1))
+    if method == "strided":
+        m = -(-n // cap)
+        blocks = F.pad(key, (0, cap * m - n), value=-1).reshape(cap, m)
+        j = torch.argmax(blocks, dim=1)
+        rows = torch.arange(cap, device=depth.device)
+        flat_idx = torch.clamp(rows * m + j, max=n - 1)
+        return pts[flat_idx], blocks[rows, j] >= 0
+    top, order = torch.sort(key, descending=True, stable=True)
+    return pts[order[:cap]], top[:cap] >= 0
 
 
 @torch.no_grad()
@@ -113,12 +161,13 @@ def fused_register_frame(
     intr: Intrinsics,
     flow_net=None,
     mask_net=None,
+    lepard_net=None,
 ):
-    """One frame. Returns (state, info [6] f32: final_loss,
+    """One frame. Returns (state, info [7] f32: final_loss,
     n_correspondences, n_visible_nodes, mean_conf, solve_valid,
-    n_flow_filled). With ``config.use_flow`` the PWC ``flow_net`` and
+    n_flow_filled, n_lepard_matches). With ``config.use_flow`` the PWC ``flow_net`` and
     ``mask_net`` are required and ``state.prev_rgbxyz`` holds the
-    previous frame."""
+    previous frame; with ``config.use_lepard`` the ``lepard_net``."""
     warp = W.WarpFieldState(
         node_positions=tables.nodes,
         node_valid=tables.node_valid,
@@ -144,9 +193,9 @@ def fused_register_frame(
     node_visible = node_visible & tables.node_valid
     corr_weight = corr_valid.to(torch.float32)
 
-    # 2b. flow correspondences: PWC prev -> current lifted to per-pixel
-    # targets, sampled at the deformed points' projections, MaskNet-gated
-    # and -weighted; they fill only points without a projective target
+    # 2b. flow correspondences: PWC prev -> current lifted to 3-D
+    # targets at the deformed points' projections, MaskNet-gated and
+    # -weighted; they fill only points without a projective target
     cur_rgbxyz = state.prev_rgbxyz
     flow_ok = torch.zeros_like(corr_valid)
     if config.use_flow:
@@ -156,24 +205,46 @@ def fused_register_frame(
         v = deformed_pts[:, 1] / z * intr.fy + intr.cy
         h_im, w_im = depth.shape
         inb = (u >= 0) & (u <= w_im - 1) & (v >= 0) & (v <= h_im - 1)
-        _, flow_targets, flow_valid, flow_weights = flow_correspondences(
-            flow_net, state.prev_rgbxyz, cur_rgbxyz, mask_net
-        )
         uv = torch.stack([u, v], dim=-1)
-        sampled = bilinear_sample(flow_targets, uv)
-        vsamp = bilinear_sample(
-            flow_valid[..., None].to(torch.float32), uv
-        )[:, 0]
-        wsamp = sample_weight_field(flow_weights, u, v)
-        flow_ok = (
-            inb & (vsamp > 0.5) & (deformed_pts[:, 2] > 0)
-            & (wsamp > FLOW_MASK_THRESHOLD) & ~corr_valid
-        )
+        if config.flow_lift == "sparse":
+            sampled, pvalid, wsamp = flow_targets_at_points(
+                flow_net, state.prev_rgbxyz, cur_rgbxyz, uv, mask_net,
+                bf16=config.flow_bf16, mask_downscale=config.mask_downscale,
+            )
+            flow_ok = inb & pvalid & (deformed_pts[:, 2] > 0)
+        else:
+            _, flow_targets, flow_valid, flow_weights = (
+                flow_correspondences(flow_net, state.prev_rgbxyz,
+                                     cur_rgbxyz, mask_net)
+            )
+            sampled = bilinear_sample(flow_targets, uv)
+            vsamp = bilinear_sample(
+                flow_valid[..., None].to(torch.float32), uv
+            )[:, 0]
+            wsamp = sample_weight_field(flow_weights, u, v)
+            flow_ok = inb & (vsamp > 0.5) & (deformed_pts[:, 2] > 0)
+        flow_ok = flow_ok & (wsamp > FLOW_MASK_THRESHOLD) & ~corr_valid
         corr_weight = torch.where(
             flow_ok, torch.clamp(wsamp, 0.0, 1.0), corr_weight
         )
         targets = torch.where(flow_ok[:, None], sampled, targets)
         corr_valid = corr_valid | flow_ok
+
+    # 2c. Lepard scene flow on a deterministic subsample of the target
+    # depth: matcher targets replace the others where the blend holds
+    lmask = torch.zeros_like(corr_valid)
+    if config.use_lepard:
+        tgt_pcd, tgt_valid = _deterministic_target_subsample(
+            depth, intr, config.lepard_max_target_points,
+            config.lepard_subsample,
+        )
+        lflow, lmask, _ = scene_flow(
+            lepard_net, deformed_pts, tables.model_valid & tables.point_valid,
+            tgt_pcd, tgt_valid,
+        )
+        targets = torch.where(lmask[:, None], deformed_pts + lflow, targets)
+        corr_valid = corr_valid | lmask
+        corr_weight = torch.maximum(corr_weight, lmask.to(torch.float32))
 
     # 3. per-node motion observations
     node_motion, node_observed = node_motion_observations(
@@ -240,6 +311,7 @@ def fused_register_frame(
         ).to(torch.float32),
         result.valid.to(torch.float32),
         torch.sum(flow_ok).to(torch.float32),
+        torch.sum(lmask).to(torch.float32),
     ])
     new_state = FusionStepState(
         tsdf=new_tsdf,
@@ -249,3 +321,119 @@ def fused_register_frame(
         prev_rgbxyz=cur_rgbxyz,
     )
     return new_state, info
+
+
+def _map_state(fn, x):
+    """``fn`` over every tensor of a (nested) state; None stays None."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    return type(x)(*(_map_state(fn, v) for v in x))
+
+
+def _copy_state_(dst, src) -> None:
+    """Copy every tensor of ``src`` into its slot of ``dst`` (in place)."""
+    if dst is None:
+        return
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+        return
+    for d, s in zip(dst, src):
+        _copy_state_(d, s)
+
+
+class ChunkGraph:
+    """F fused steps captured back to back in one CUDA graph.
+
+    The steps read static device buffers (the F depth and colour frames
+    and the carried state: TSDF, node transforms, motion-runner state,
+    the previous RGB-XYZ image) and each writes its new state back into
+    them with ``copy_`` and its info row into a static [F, 7] buffer, so
+    one replay runs the whole chunk. Before capture one step runs on a
+    side stream, on a clone of the state, which loads the kernel library,
+    makes the bf16 twins of the nets and creates the cuBLAS, cuSOLVER and
+    cuDNN handles and workspaces; the real state does not advance."""
+
+    def __init__(self, config: FusedStepConfig, state: FusionStepState,
+                 tables: FusionTables, nets, depths, colors,
+                 intr: Intrinsics):
+        dev = depths.device
+        self.keep = (tables, nets)  # the graph reads their memory
+        self.state = _map_state(torch.clone, state)
+        self.depths = depths.clone()
+        self.colors = colors.clone()
+        n = depths.shape[0]
+        self.infos = torch.zeros((n, 7), dtype=torch.float32, device=dev)
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            fused_register_frame(config, _map_state(torch.clone, state),
+                                 tables, nets[0], self.depths[0],
+                                 self.colors[0], intr, *nets[1:])
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        torch.cuda.synchronize(dev)
+        self.graph = torch.cuda.CUDAGraph()
+        with D.capturing() as counts, torch.cuda.graph(self.graph,
+                                                       stream=stream):
+            for j in range(n):
+                new, info = fused_register_frame(
+                    config, self.state, tables, nets[0], self.depths[j],
+                    self.colors[j], intr, *nets[1:],
+                )
+                _copy_state_(self.state, new)
+                self.infos[j].copy_(info)
+        # the kernel launches one replay makes
+        self.counts = counts
+
+    def replay(self, state, depths, colors):
+        """Run the chunk from ``state``: returns (state, infos [F, 7]),
+        copies the caller keeps (the next replay overwrites the graph's
+        buffers)."""
+        _copy_state_(self.state, state)
+        self.depths.copy_(depths)
+        self.colors.copy_(colors)
+        self.graph.replay()
+        D.count_replay(self.counts)
+        return _map_state(torch.clone, self.state), self.infos.clone()
+
+
+@torch.no_grad()
+def fused_register_chunk(
+    config: FusedStepConfig,
+    state: FusionStepState,
+    tables: FusionTables,
+    motion_net,
+    depths: torch.Tensor,  # [F, H, W]
+    colors: torch.Tensor,  # [F, H, W, 3]
+    intr: Intrinsics,
+    flow_net=None,
+    mask_net=None,
+    lepard_net=None,
+    *,
+    graphs: dict,
+):
+    """F frames in order -> (state, infos [F, 7]), the counterpart of the
+    JAX ``lax.scan`` chunk. On CPU tensors the F eager steps; on CUDA
+    tensors one replay of the chunk's CUDA graph, captured at the first
+    call for this step config, F, frame shape, tables and nets and kept
+    in ``graphs``, a dict the caller owns (``DynamicFusion.graphs``).
+    A capture that fails raises: there is no eager fallback on the
+    card."""
+    nets = (motion_net, flow_net, mask_net, lepard_net)
+    if not depths.is_cuda:
+        infos = []
+        for j in range(depths.shape[0]):
+            state, info = fused_register_frame(
+                config, state, tables, motion_net, depths[j], colors[j],
+                intr, flow_net, mask_net, lepard_net,
+            )
+            infos.append(info)
+        return state, torch.stack(infos)
+    key = (config, tuple(depths.shape), tuple(colors.shape), tuple(intr),
+           id(tables), *map(id, nets))
+    graph = graphs.get(key)
+    if graph is None:
+        graph = graphs[key] = ChunkGraph(config, state, tables, nets, depths,
+                                        colors, intr)
+    return graph.replay(state, depths, colors)

@@ -5,14 +5,21 @@
 volume, extracts the mesh and builds the deformation graph on the host,
 and skins the model points and every voxel (kernel K1 on CUDA).
 ``build_fused`` packs the device-resident tables and state;
-``register_frame_fused`` runs one fused step; ``run_fused`` drives a
-whole sequence, reading the per-frame info back once at its end.
+``register_frame_fused`` runs one eager fused step; ``run_fused`` drives
+a sequence through the chunked engine (``fused_register_chunk``: one
+CUDA graph replay per chunk on the card), reading the per-frame info
+back once per chunk while the next chunk runs. ``get_deformed_mesh``
+returns the canonical mesh warped to the current frame (kernel K1 skins
+its vertices).
 
 Ported: the dense and the bricked volume with ``solver="gn_dense"``,
-projective correspondences, the motion GNN, and PWC flow with MaskNet
-weights in the JAX defaults' mode (fill, dense lift, full resolution).
-Graph growth (and with it brick refresh), keyframes, the stepwise N-ICP
-loop, Lepard and the other flow modes raise ``NotImplementedError``.
+projective correspondences, the motion GNN, PWC flow with MaskNet
+weights in fill mode (dense or sparse lift; bf16 nets and a 1/N MaskNet
+with the sparse lift), and the Lepard matcher every frame (topk or
+strided target subsample). Graph growth (and with it brick refresh),
+keyframes and relocalization, the stepwise N-ICP loop, the other flow
+modes, ``flow_downscale``, patchwise NMS, flow without MaskNet and a
+Lepard cadence above 1 raise ``NotImplementedError`` (``UNPORTED``).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from occlusionfusion_tpu_torch.fusion.fused_step import (
     FusionStepState,
     FusionTables,
     _rgbxyz_image,
+    fused_register_chunk,
     fused_register_frame,
 )
 from occlusionfusion_tpu_torch.fusion.frame_loader import Frame
@@ -47,9 +55,17 @@ from occlusionfusion_tpu_torch.graph.edgraph import (
 )
 from occlusionfusion_tpu_torch.solvers.gauss_newton import GNConfig
 
-# settings of the JAX FusionConfig that must stay off: not ported
-UNPORTED = ("growth_interval", "keyframe_interval", "use_lepard",
-            "min_cluster_matches")
+# settings of the JAX FusionConfig that are not ported, each with the
+# one value the port takes (the JAX default)
+UNPORTED = {
+    "growth_interval": 0,
+    "keyframe_interval": 0,
+    "min_cluster_matches": 0.0,
+    "flow_mode": "fill",
+    "flow_downscale": 1,
+    "flow_mask_patch": 0,
+    "lepard_every": 1,
+}
 
 
 @dataclass
@@ -77,13 +93,28 @@ class FusionConfig:
     brick_size: int = -1
     max_bricks: int = 2048
     # PWC flow + MaskNet correspondences (flow_net and mask_net given to
-    # DynamicFusion) fill points without a projective target: the JAX
-    # defaults (flow_mode "fill", dense lift, full resolution, f32)
+    # DynamicFusion) fill points without a projective target whose
+    # sampled MaskNet weight exceeds 0.35 (the JAX default)
     use_flow: bool = False
+    # "dense" lifts every pixel and samples at the model projections;
+    # "sparse" lifts at the projections only
+    flow_lift: str = "dense"
+    # sparse lift only: PWC + MaskNet in bfloat16; MaskNet at 1/N
+    flow_bf16: bool = False
+    mask_downscale: int = 1
+    # Lepard scene flow (lepard_net given to DynamicFusion) on a
+    # deterministic "topk" or "strided" subsample of the target depth
+    use_lepard: bool = False
+    lepard_max_target_points: int = 4096
+    lepard_subsample: str = "topk"
+    # not ported: each must keep its value in UNPORTED
     growth_interval: int = 0
     keyframe_interval: int = 0
-    use_lepard: bool = False
     min_cluster_matches: float = 0.0
+    flow_mode: str = "fill"
+    flow_downscale: int = 1
+    flow_mask_patch: int = 0
+    lepard_every: int = 1
 
     def __post_init__(self):
         """The one place that rejects the settings this port lacks."""
@@ -91,26 +122,50 @@ class FusionConfig:
             raise NotImplementedError(
                 f"solver={self.solver!r} is not ported (gn_dense only)"
             )
-        for name in UNPORTED:
-            if getattr(self, name):
+        if self.flow_lift not in ("dense", "sparse"):
+            raise ValueError(f"flow_lift must be 'dense' or 'sparse', got "
+                             f"{self.flow_lift!r}")
+        if self.lepard_subsample not in ("topk", "strided"):
+            raise ValueError(f"lepard_subsample must be 'topk' or "
+                             f"'strided', got {self.lepard_subsample!r}")
+        if self.lepard_every < 1:
+            raise ValueError(
+                f"lepard_every must be >= 1, got {self.lepard_every}")
+        if self.flow_lift == "dense" and (self.flow_bf16
+                                          or self.mask_downscale != 1):
+            raise ValueError("flow_bf16 and mask_downscale take "
+                             "flow_lift='sparse'")
+        for name, value in UNPORTED.items():
+            if getattr(self, name) != value:
                 raise NotImplementedError(f"{name}={getattr(self, name)!r} "
                                           "is not ported")
 
 
 class DynamicFusion:
     def __init__(self, sequence, config: FusionConfig, device=None,
-                 flow_net=None, mask_net=None):
+                 flow_net=None, mask_net=None, lepard_net=None):
         """``flow_net``/``mask_net``: PWC-Net and MaskNet
         (``models.checkpoint.load_flow_nets``), required by
-        ``config.use_flow``."""
+        ``config.use_flow``; ``lepard_net``: the matcher
+        (``models.checkpoint.load_lepard_checkpoint``), required by
+        ``config.use_lepard``."""
         self.seq = sequence
         self.config = config
         self.intr = sequence.intrinsics
         self.device = resolve_device(device)
-        if config.use_flow and (flow_net is None or mask_net is None):
+        if config.use_flow and flow_net is None:
             raise ValueError("use_flow requires flow_net and mask_net")
+        if config.use_flow and mask_net is None:
+            raise NotImplementedError(
+                "flow without MaskNet (mask_net=None) is not ported")
+        if config.use_lepard and lepard_net is None:
+            raise ValueError("use_lepard requires lepard_net")
         self.flow_net = flow_net
         self.mask_net = mask_net
+        self.lepard_net = lepard_net
+        self.track_lost = False
+        # the chunk graphs of run_fused (fused_register_chunk's cache)
+        self.graphs = {}
 
     def _t(self, x, dtype=torch.float32):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
@@ -287,33 +342,70 @@ class DynamicFusion:
             use_motion_model=use_motion,
             motion_levels=motion_levels,
             use_flow=cfg.use_flow,
+            flow_lift=cfg.flow_lift,
+            flow_bf16=cfg.flow_bf16,
+            mask_downscale=cfg.mask_downscale,
+            use_lepard=cfg.use_lepard,
+            lepard_max_target_points=cfg.lepard_max_target_points,
+            lepard_subsample=cfg.lepard_subsample,
         )
         return step_config, state, tables
 
+    def _perception(self):
+        return self.flow_net, self.mask_net, self.lepard_net
+
     def register_frame_fused(self, step_config, state, tables, frame: Frame,
                              motion_net=None):
-        """One fused step; the caller owns the state."""
+        """One eager fused step; the caller owns the state."""
         return fused_register_frame(
             step_config, state, tables, motion_net, self._t(frame.depth),
-            self._t(frame.color), self.intr, self.flow_net, self.mask_net,
+            self._t(frame.color), self.intr, *self._perception(),
         )
 
-    def run_fused(self, motion_net=None):
-        """Drive the whole sequence through the fused step: frame 0
-        initializes, frames 1.. are registered. The per-frame info is read
-        back once, after the last frame. Returns a list of per-frame info
-        dicts."""
-        self.initialize(self.seq.load(0))
+    def run_fused(self, start: int = 0, end: int | None = None,
+                  skip: int = 1, chunk: int = 16, motion_net=None):
+        """Drive the sequence through the chunked engine: frame ``start``
+        initializes, frames ``range(start + skip, end, skip)`` are
+        registered ``chunk`` at a time (one CUDA graph replay per chunk
+        on the card, a graph for each chunk length). Frames are staged
+        in pinned host buffers and uploaded without blocking; the info of
+        a chunk is read back while the next one runs. Sets ``track_lost``
+        when a frame has fewer than 16 correspondences, ``frame_id`` and
+        ``prev_frame``. Returns a list of per-frame info dicts."""
+        end = len(self.seq) if end is None else end
+        self.initialize(self.seq.load(start))
         sc, state, tables = self.build_fused(motion_net)
-        outs = []
-        with torch.no_grad():
-            for i in range(1, len(self.seq)):
-                state, info = self.register_frame_fused(
-                    sc, state, tables, self.seq.load(i), motion_net
-                )
-                outs.append(info)
-        out_np = torch.stack(outs).cpu().numpy()
-        infos = [{
+        ids = list(range(start + skip, end, skip))
+        stager = _FrameStager(self.device)
+        pending, infos = [], []
+        for lo in range(0, len(ids), chunk):
+            chunk_ids = ids[lo : lo + chunk]
+            frames = [self.seq.load(i) for i in chunk_ids]
+            depths, colors = stager.upload(frames)
+            state, out = fused_register_chunk(
+                sc, state, tables, motion_net, depths, colors, self.intr,
+                *self._perception(), graphs=self.graphs,
+            )
+            pending.append((chunk_ids, stager.download(out)))
+            if len(pending) > 1:
+                infos += self._read_infos(*pending.pop(0))
+            self.frame_id = chunk_ids[-1]
+            self.prev_frame = frames[-1]
+        for p in pending:
+            infos += self._read_infos(*p)
+        self.adopt_fused_state(state)
+        return infos
+
+    def _read_infos(self, chunk_ids, download):
+        """A chunk's info rows, once their copy has landed -> per-frame
+        dicts."""
+        out, done = download
+        if done is not None:
+            done.synchronize()
+        out_np = out.numpy()
+        if (out_np[:, 1] < 16).any():
+            self.track_lost = True
+        return [{
             "frame": i,
             "final_loss": float(row[0]),
             "n_correspondences": int(row[1]),
@@ -321,9 +413,8 @@ class DynamicFusion:
             "mean_confidence": float(row[3]),
             "solve_valid": bool(row[4] > 0.5),
             "n_flow_filled": int(row[5]),
-        } for i, row in enumerate(out_np, start=1)]
-        self.adopt_fused_state(state)
-        return infos
+            "n_lepard_matches": int(row[6]),
+        } for i, row in zip(chunk_ids, out_np)]
 
     def adopt_fused_state(self, state: FusionStepState):
         """Copy a fused-path state back into the object-style fields."""
@@ -331,3 +422,57 @@ class DynamicFusion:
         self.warp = W.update_transforms(
             self.warp, state.rotations, state.translations
         )
+
+    def get_deformed_mesh(self):
+        """Marching cubes on the canonical TSDF, the vertices skinned at
+        ``node_coverage`` (K1 on the card) and warped to the current
+        frame. Returns (verts [V, 3] numpy, faces [F, 3] numpy)."""
+        verts, faces = self._extract_mesh_host()
+        v = self._t(verts)
+        table = W.skin(self.warp, v, self.config.node_coverage)
+        return W.deform_points(self.warp, v, table).cpu().numpy(), faces
+
+
+class _FrameStager:
+    """Depth and colour chunks through two pinned host buffers, uploaded
+    with ``non_blocking=True``. A buffer is refilled only after the event
+    recorded behind its last upload has passed, so a copy in flight is
+    never overwritten. Info rows come back the same way, into pinned
+    memory with an event (``download``). On the CPU: plain tensors."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.bufs, self.events, self.turn = None, [None, None], 0
+
+    def upload(self, frames):
+        depth = np.stack([f.depth for f in frames]).astype(np.float32)
+        color = np.stack([f.color for f in frames]).astype(np.float32)
+        if self.device.type != "cuda":
+            return torch.from_numpy(depth), torch.from_numpy(color)
+        n = len(frames)
+        if self.bufs is None or self.bufs[0][0].shape[0] < n:
+            self.bufs = [tuple(torch.empty(a.shape, dtype=torch.float32,
+                                           pin_memory=True)
+                               for a in (depth, color)) for _ in range(2)]
+        b = self.turn
+        self.turn = 1 - b
+        if self.events[b] is not None:
+            self.events[b].synchronize()
+        out = []
+        for pinned, a in zip(self.bufs[b], (depth, color)):
+            pinned[:n].numpy()[...] = a
+            out.append(pinned[:n].to(self.device, non_blocking=True))
+        self.events[b] = torch.cuda.Event()
+        self.events[b].record()
+        return tuple(out)
+
+    def download(self, x):
+        """(host copy of ``x``, event to wait on before reading it, or
+        None on the CPU)."""
+        if self.device.type != "cuda":
+            return x, None
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done

@@ -1,4 +1,5 @@
-"""Pinhole camera model (port of ``occlusionfusion_tpu/geometry/camera.py``)."""
+"""Pinhole camera model (port of ``occlusionfusion_tpu/geometry/camera.py``),
+bilinear sampling, and the bilinear image resize of ``jax.image.resize``."""
 
 from __future__ import annotations
 
@@ -57,3 +58,44 @@ def bilinear_sample(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     top = img[v0, u0] * (1 - fu) + img[v0, u1] * fu
     bot = img[v1, u0] * (1 - fu) + img[v1, u1] * fu
     return top * (1 - fv) + bot * fv
+
+
+def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """[n_in, n_out] f32 weights of ``jax.image.resize(method="bilinear")``
+    along one axis (``jax._src.image.scale.compute_weight_mat`` with its
+    triangle kernel and antialiasing): output i samples the input at
+    (i + 0.5) n_in / n_out - 0.5, and when downsampling the triangle
+    widens by the factor (taps [1, 3, 3, 1] / 8 at x2), each column
+    renormalized over the taps inside the input."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5
+              ) * inv_scale - 0.5
+    src = torch.arange(n_in, dtype=torch.float32, device=device)
+    x = torch.abs(sample[None, :] - src[:, None]) / kernel_scale
+    w = torch.clamp(1.0 - torch.abs(x), min=0.0)
+    total = torch.sum(w, dim=0, keepdim=True)
+    w = torch.where(
+        torch.abs(total) > 1000.0 * float(torch.finfo(torch.float32).eps),
+        w / torch.where(total != 0, total, torch.ones_like(total)),
+        torch.zeros_like(w),
+    )
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
+    """Resize the last two (spatial) axes of ``x`` [..., H, W] to ``size``
+    (h, w) as ``jax.image.resize(..., method="bilinear")`` does, with its
+    antialiasing when shrinking; an axis whose size does not change is
+    left alone. The weights take ``x``'s dtype (bf16 inputs resize in
+    bf16, as in JAX). Built from device ops only, so a CUDA graph can
+    capture it."""
+    H, W = x.shape[-2:]
+    h, w = size
+    if w != W:
+        x = x @ _resize_weights(W, w, x.device).to(x.dtype)
+    if h != H:
+        x = (x.transpose(-1, -2)
+             @ _resize_weights(H, h, x.device).to(x.dtype)).transpose(-1, -2)
+    return x

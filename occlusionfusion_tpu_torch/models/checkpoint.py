@@ -2,9 +2,10 @@
 
 The repo's ``.npz`` checkpoints are flat maps: ``{"a.b.weight": array}``
 for the motion-completion net, ``{"pwc/decoders/2/flow/w": array}`` for
-the flow nets. The JAX package nests them into parameter pytrees;
-``params_from_jax``, ``pwc_params_from_jax`` and
-``masknet_params_from_jax`` turn such a pytree (numpy leaves) into the
+the flow nets and the Lepard matcher (whose ``.json`` side-car holds its
+configuration). The JAX package nests them into parameter pytrees;
+``params_from_jax``, ``pwc_params_from_jax``, ``masknet_params_from_jax``
+and ``lepard_params_from_jax`` turn such a pytree (numpy leaves) into the
 ``state_dict`` of the port's ``nn.Module``.
 """
 
@@ -21,6 +22,7 @@ _REPO_ROOT = os.path.dirname(
 )
 MOTION_COMPLETE_NPZ = os.path.join(_REPO_ROOT, "checkpoints", "motion_complete.npz")
 FLOW_NPZ = os.path.join(_REPO_ROOT, "checkpoints", "flow.npz")
+LEPARD_NPZ = os.path.join(_REPO_ROOT, "checkpoints", "lepard_trained.npz")
 
 
 def nest_flat_dict(flat: Dict[str, np.ndarray],
@@ -171,3 +173,106 @@ def load_flow_nets(path: str | None = None, device=None):
     mask.load_state_dict(masknet_params_from_jax(tree["mask"]))
     dev = resolve_device(device)
     return pwc.to(dev).eval(), mask.to(dev).eval()
+
+
+def _as_blocks(res):
+    """A block list as the JAX ``kpconv._as_blocks`` reads it: a list, a
+    dict with digit keys (a flat-npz round trip), or one legacy block
+    (a dict holding ``down``)."""
+    if isinstance(res, dict) and "down" in res:
+        return [res]
+    if isinstance(res, dict):
+        return [res[k] for k in sorted(res, key=int)]
+    return list(res)
+
+
+def _flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dicts and lists -> {"a.0.b": leaf}; empty dicts vanish."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    flat = {}
+    for k, v in items:
+        name = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, (dict, list, tuple)):
+            flat.update(_flatten_tree(v, name))
+        else:
+            flat[name] = np.asarray(v)
+    return flat
+
+
+def lepard_params_from_jax(np_tree) -> Dict[str, torch.Tensor]:
+    """The JAX Lepard parameter tree (numpy leaves; fresh, or nested from
+    the npz with digit keys and the positioning layers' empty dicts
+    dropped) as the ``state_dict`` of ``models.lepard.LepardNet``."""
+    kp = dict(np_tree["kpfcn"])
+    kp["enc"] = [dict(stage, res=_as_blocks(stage["res"]))
+                 for stage in _as_blocks(kp["enc"])]
+    if "dec" in kp:
+        kp["dec"] = _as_blocks(kp["dec"])
+    tree = dict(np_tree, kpfcn=kp)
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in _flatten_tree(tree).items()}
+
+
+def lepard_config_from_json(d: dict):
+    """The port's ``LepardConfig`` from a checkpoint's side-car dict (the
+    fields the JAX ``load_lepard_checkpoint`` reads, with its defaults
+    for the optional ones)."""
+    from occlusionfusion_tpu_torch.models import kpconv as K
+    from occlusionfusion_tpu_torch.models.lepard import LepardConfig
+    from occlusionfusion_tpu_torch.models.transformer3d import (
+        RepositionConfig,
+    )
+
+    kp, pyr, rp = d["kpfcn"], d["kpfcn"]["pyramid"], d["reposition"]
+    return LepardConfig(
+        kpfcn=K.KPFCNConfig(
+            in_dim=kp["in_dim"], first_dim=kp["first_dim"],
+            out_dim=kp["out_dim"],
+            num_kernel_points=kp["num_kernel_points"],
+            blocks_per_stage=kp["blocks_per_stage"],
+            num_stages=kp.get("num_stages", 2),
+            coarse_upsamples=kp.get("coarse_upsamples", 0),
+            kp_layout=kp.get("kp_layout", "fibonacci"),
+            pyramid=K.PyramidConfig(
+                level_sizes=tuple(pyr["level_sizes"]),
+                first_voxel=pyr["first_voxel"],
+                radius_scale=pyr["radius_scale"],
+                max_neighbors=tuple(pyr["max_neighbors"]),
+            ),
+        ),
+        reposition=RepositionConfig(
+            dim=rp["dim"], heads=rp["heads"],
+            layer_types=tuple(rp["layer_types"]),
+            rope_voxel=rp["rope_voxel"], temperature=rp["temperature"],
+        ),
+        match_threshold=d["match_threshold"],
+        blend_knn=d["blend_knn"],
+        blend_radius=d["blend_radius"],
+        coherence_tau=d.get("coherence_tau", 0.0),
+        coherence_knn=d.get("coherence_knn", 4),
+        coherence_mad=d.get("coherence_mad", 0.0),
+    )
+
+
+def load_lepard_checkpoint(npz_path: str | None = None, device=None,
+                           config=None):
+    """(LepardNet in eval mode, LepardConfig) from a matcher checkpoint
+    (``checkpoints/lepard_trained.npz`` and its ``.json`` side-car unless
+    a path is given). ``config`` overrides the side-car's (a smaller
+    pyramid over the same weights, as the tests use)."""
+    import json
+
+    from occlusionfusion_tpu_torch.device import resolve_device
+    from occlusionfusion_tpu_torch.models.lepard import LepardNet
+
+    path = npz_path or LEPARD_NPZ
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no Lepard weights at {path}")
+    if config is None:
+        with open(path + ".json") as fh:
+            config = lepard_config_from_json(json.load(fh))
+    data = np.load(path)
+    tree = nest_flat_dict({k: data[k] for k in data.files}, sep="/")
+    net = LepardNet(config)
+    net.load_state_dict(lepard_params_from_jax(tree))
+    return net.to(resolve_device(device)).eval(), config

@@ -1,0 +1,296 @@
+"""KPConv point-cloud backbone, KPFCN (port of
+``occlusionfusion_tpu/models/kpconv.py``).
+
+The multi-scale pyramid (voxel-grid subsampling, radius neighbourhoods
+with shadow-index padding, pooling and nearest-upsampling indices) is
+built on the device at static sizes, and the KPConv layer is a gather
+and one contraction over (neighbours x kernel points x channels). The
+k-NN of the neighbourhoods and the upsampling is ``ops/knn.knn_torch``,
+the port of the XLA ``knn_lax`` the JAX package calls here: the TPU
+kernel K1 (``knn``) takes k = 4 only and stays with the skinning.
+
+``grid_subsample`` hashes with uint32 wraparound as JAX does (int64
+arithmetic masked to 32 bits), orders by a stable sort, and sums each
+voxel's points with ``index_add_``, which adds in index order on the CPU
+(as XLA's segment sum does) and with atomics on the card.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from occlusionfusion_tpu_torch.ops.knn import knn_torch
+
+_U32 = 0xFFFFFFFF
+
+
+def kernel_points(num_points: int = 15, radius: float = 1.0,
+                  layout: str = "fibonacci") -> torch.Tensor:
+    """[K, 3] kernel disposition: the centre, then a Fibonacci-sphere
+    shell at 0.66 (the layout the shipped checkpoints use)."""
+    if layout != "fibonacci":
+        raise NotImplementedError(f"kp_layout={layout!r} is not ported "
+                                  "(fibonacci only)")
+    n_shell = num_points - 1
+    i = torch.arange(n_shell, dtype=torch.float32)
+    golden = (1 + 5**0.5) / 2
+    theta = 2 * math.pi * i / golden
+    z = 1 - (2 * i + 1) / n_shell
+    r = torch.sqrt(torch.clamp(1 - z * z, min=0.0))
+    shell = torch.stack([r * torch.cos(theta), r * torch.sin(theta), z], -1)
+    pts = torch.cat([torch.zeros((1, 3)), shell * 0.66])
+    return pts * radius
+
+
+def grid_subsample(points, valid, voxel: float, max_out: int):
+    """Barycentre voxel subsampling -> (centres [max_out, 3], valid
+    [max_out]), voxels ranked by their hash."""
+    P = points.shape[0]
+    coords = torch.floor(points / voxel).to(torch.int32).long() & _U32
+    h = (((coords[:, 0] * 73856093) & _U32)
+         ^ ((coords[:, 1] * 19349669) & _U32)
+         ^ ((coords[:, 2] * 83492791) & _U32))
+    h = torch.where(valid, h, torch.full_like(h, _U32))  # invalid: one bucket
+    order = torch.argsort(h, stable=True)
+    hs = h[order]
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=h.device),
+                       hs[1:] != hs[:-1]])
+    seg = torch.cumsum(first.long(), 0) - 1
+    npts = points[order]
+    nvalid = valid[order]
+    n_seg = max(P, max_out)
+    sums = torch.zeros((n_seg, 3), dtype=points.dtype, device=points.device)
+    sums.index_add_(0, seg, torch.where(nvalid[:, None], npts,
+                                        torch.zeros_like(npts)))
+    counts = torch.zeros(n_seg, dtype=points.dtype, device=points.device)
+    counts.index_add_(0, seg, nvalid.to(points.dtype))
+    centers = sums / torch.clamp(counts[:, None], min=1.0)
+    return centers[:max_out], (counts > 0)[:max_out]
+
+
+def build_neighbors(queries, q_valid, supports, s_valid, radius: float,
+                    max_k: int):
+    """[Q, max_k] int64 indices into supports within ``radius``; the
+    shadow index len(supports) fills the rest."""
+    S = supports.shape[0]
+    d2, idx = knn_torch(queries, supports, min(max_k, S), s_valid)
+    ok = (d2 <= radius * radius) & q_valid[:, None]
+    out = torch.where(ok, idx.long(), torch.full_like(idx, S, dtype=torch.long))
+    if out.shape[1] < max_k:
+        out = F.pad(out, (0, max_k - out.shape[1]), value=S)
+    return out
+
+
+def kpconv(feats, supports, queries, neighbors, weights, kp, kp_sigma: float):
+    """Kernel-point convolution, linear influence relu(1 - d / sigma),
+    summed: feats [S, Cin] -> [Q, Cout]."""
+    Q, n = neighbors.shape
+    K, C, D = weights.shape
+    feats_pad = torch.cat([feats, feats.new_zeros((1, C))])
+    sup_pad = torch.cat([supports, supports.new_full((1, 3), 1e6)])
+    nb_feats = feats_pad[neighbors]  # [Q, n, C]
+    nb_pos = sup_pad[neighbors] - queries[:, None, :]
+    d = torch.linalg.vector_norm(nb_pos[:, :, None, :] - kp[None, None],
+                                 dim=-1)  # [Q, n, K]
+    infl = torch.clamp(1.0 - d / kp_sigma, min=0.0)
+    wf = torch.einsum("qnk,qnc->qkc", infl, nb_feats)
+    return wf.reshape(Q, K * C) @ weights.reshape(K * C, D)
+
+
+class PyramidLevel(NamedTuple):
+    points: torch.Tensor  # [P_l, 3]
+    valid: torch.Tensor  # [P_l]
+    neighbors: torch.Tensor  # [P_l, n_max] self-neighbourhood
+    pool: torch.Tensor = None  # [P_{l+1}, n_max] from level l
+    up: torch.Tensor = None  # [P_l] nearest in level l+1
+
+
+class PyramidConfig(NamedTuple):
+    level_sizes: Sequence[int] = (4096, 1024, 256, 64)
+    first_voxel: float = 0.025
+    radius_scale: float = 2.5
+    max_neighbors: Sequence[int] = (26, 28, 30, 30)
+
+
+def build_pyramid(points, valid, config: PyramidConfig):
+    """Level 0 by ``grid_subsample`` at ``first_voxel``, then the rest."""
+    pts, vld = grid_subsample(points, valid, config.first_voxel,
+                              config.level_sizes[0])
+    return build_pyramid_from_level0(pts, vld, config)
+
+
+def build_pyramid_from_level0(pts, vld, config: PyramidConfig):
+    """Each level's radius neighbourhood; between levels a subsample at
+    twice the voxel, the pooling neighbourhoods and the 1-NN upsampling
+    index."""
+    levels = []
+    voxel = config.first_voxel
+    n_levels = len(config.level_sizes)
+    for l in range(n_levels):
+        radius = voxel * config.radius_scale
+        nmax = config.max_neighbors[l]
+        nb = build_neighbors(pts, vld, pts, vld, radius, nmax)
+        if l + 1 < n_levels:
+            voxel2 = voxel * 2
+            pts2, vld2 = grid_subsample(pts, vld, voxel2,
+                                        config.level_sizes[l + 1])
+            pool = build_neighbors(pts2, vld2, pts, vld, radius, nmax)
+            up = knn_torch(pts, pts2, 1, vld2)[1][:, 0].long()
+            levels.append(PyramidLevel(pts, vld, nb, pool, up))
+            pts, vld, voxel = pts2, vld2, voxel2
+        else:
+            levels.append(PyramidLevel(pts, vld, nb))
+    return levels
+
+
+def _group_norm(x, valid, groups: int = 8, eps: float = 1e-5):
+    """Group norm over the valid points (8 groups, no affine)."""
+    C = x.shape[-1]
+    g = x.reshape(x.shape[0], groups, C // groups)
+    m = valid[:, None, None]
+    zero = torch.zeros_like(g)
+    count = torch.clamp(torch.sum(valid), min=1).to(x.dtype) * (C // groups)
+    mean = torch.sum(torch.where(m, g, zero), dim=(0, 2), keepdim=True) / count
+    var = torch.sum(torch.where(m, (g - mean) ** 2, zero), dim=(0, 2),
+                    keepdim=True) / count
+    return ((g - mean) / torch.sqrt(var + eps)).reshape(x.shape)
+
+
+def _lrelu(x):
+    return F.leaky_relu(x, 0.1)
+
+
+class Linear(nn.Module):
+    """x @ w + b with the JAX layout: w [in, out]."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros(cin, cout))
+        self.b = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x):
+        return x @ self.w + self.b
+
+
+class KernelWeights(nn.Module):
+    """KPConv weights [K, Cin, Cout] (the JAX ``{"weights": ...}``)."""
+
+    def __init__(self, K: int, cin: int, cout: int):
+        super().__init__()
+        self.weights = nn.Parameter(torch.zeros(K, cin, cout))
+
+
+class ResnetB(nn.Module):
+    """Bottleneck residual KPConv block: 1x1 down, KPConv, 1x1 up, plus a
+    1x1 skip (max-pooled over the pooling neighbourhood when strided)."""
+
+    def __init__(self, cin: int, cmid: int, cout: int, K: int):
+        super().__init__()
+        self.down = Linear(cin, cmid)
+        self.conv = KernelWeights(K, cmid, cmid)
+        self.up = Linear(cmid, cout)
+        self.skip = Linear(cin, cout)
+
+    def forward(self, feats, supports: PyramidLevel, queries: PyramidLevel,
+                neighbors, kp, sigma):
+        x = _lrelu(_group_norm(self.down(feats), supports.valid))
+        x = kpconv(x, supports.points, queries.points, neighbors,
+                   self.conv.weights, kp, sigma)
+        x = self.up(_lrelu(_group_norm(x, queries.valid)))
+        skip = self.skip(feats)
+        if queries.points.shape[0] != supports.points.shape[0]:
+            fpad = torch.cat([skip, skip.new_full((1, skip.shape[1]), -1e9)])
+            skip = torch.amax(fpad[neighbors], dim=1)
+            skip = torch.where(torch.isfinite(skip), skip,
+                               torch.zeros_like(skip))
+        return _lrelu(x + skip)
+
+
+class KPFCNConfig(NamedTuple):
+    in_dim: int = 1
+    first_dim: int = 128
+    out_dim: int = 528
+    num_kernel_points: int = 15
+    blocks_per_stage: int = 1
+    num_stages: int = 2
+    coarse_upsamples: int = 0
+    kp_layout: str = "fibonacci"
+    pyramid: PyramidConfig = PyramidConfig()
+
+
+class _Stage(nn.Module):
+    def __init__(self, cin: int, cout: int, blocks: int, K: int):
+        super().__init__()
+        self.res = nn.ModuleList(
+            [ResnetB(cin, cin // 2, cin, K) for _ in range(blocks)])
+        self.strided = ResnetB(cin, cin // 2, cout, K)
+
+
+class KPFCN(nn.Module):
+    """The encoder (stem, ``num_stages`` stages of resnetb blocks and a
+    strided block, a final block) and ``coarse_upsamples`` nearest-
+    upsample decoder blocks; parameter names follow the JAX tree."""
+
+    def __init__(self, config: KPFCNConfig):
+        super().__init__()
+        self.config = config
+        K, d = config.num_kernel_points, config.first_dim
+        self.register_buffer("kp_unit",
+                             kernel_points(K, 1.0, config.kp_layout),
+                             persistent=False)
+        self.stem = KernelWeights(K, config.in_dim, d)
+        stages = []
+        cin = d
+        for l in range(config.num_stages):
+            cout = d * 2 ** (l + 1)
+            stages.append(_Stage(cin, cout, config.blocks_per_stage, K))
+            cin = cout
+        self.enc = nn.ModuleList(stages)
+        self.final_res = ResnetB(cin, cin // 2, cin, K)
+        n = config.num_stages
+        dec, c = [], cin
+        for u in range(config.coarse_upsamples):
+            skip_c = d * 2 ** (n - 1 - u)
+            dec.append(Linear(c + skip_c, skip_c))
+            c = skip_c
+        self.dec = nn.ModuleList(dec)
+        self.out = Linear(d * 2 ** (n - config.coarse_upsamples),
+                          config.out_dim)
+
+
+def kpfcn_encode(net: KPFCN, levels):
+    """(features [P_coarse, out_dim], the coarse PyramidLevel)."""
+    config = net.config
+    voxel = config.pyramid.first_voxel
+    sigma = voxel * 1.2
+    l0 = levels[0]
+    x = kpconv(l0.points.new_ones((l0.points.shape[0], config.in_dim)),
+               l0.points, l0.points, l0.neighbors, net.stem.weights,
+               net.kp_unit * sigma, sigma)
+    x = _lrelu(_group_norm(x, l0.valid))
+    skips = []
+    for l, stage in enumerate(net.enc):
+        level, nxt = levels[l], levels[l + 1]
+        sigma = voxel * 1.2
+        kp = net.kp_unit * sigma
+        for block in stage.res:
+            x = block(x, level, level, level.neighbors, kp, sigma)
+        skips.append(x)
+        x = stage.strided(x, level, nxt, level.pool, kp, sigma)
+        voxel *= 2
+    deep = levels[config.num_stages]
+    sigma = voxel * 1.2
+    x = net.final_res(x, deep, deep, deep.neighbors, net.kp_unit * sigma,
+                      sigma)
+    coarse_idx = config.num_stages
+    for u, lin in enumerate(net.dec):
+        coarse_idx = config.num_stages - 1 - u
+        lvl = levels[coarse_idx]
+        x = torch.cat([x[lvl.up], skips[coarse_idx]], dim=-1)
+        x = _lrelu(_group_norm(lin(x), lvl.valid))
+    return net.out(x), levels[coarse_idx]

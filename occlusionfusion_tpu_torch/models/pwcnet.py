@@ -14,9 +14,17 @@ the extractor (0 before, 1 after on even sizes); the transposed 4x4
 stride-2 convolutions take the JAX kernels spatially flipped
 (``models/checkpoint.py`` flips them once at load). cuDNN runs in full
 f32 (TF32 off, ``device.py``).
+
+``bf16_copy`` gives a net's bfloat16 twin, cast once, for the bf16
+perception setting: each convolution takes its input in its weights'
+dtype, as the JAX ``_conv`` does, while ``bilinear_warp`` keeps its
+coordinate math in f32.
 """
 
 from __future__ import annotations
+
+import copy
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -57,6 +65,7 @@ class Conv(nn.Module):
         self.dilation = dilation
 
     def forward(self, x):
+        x = x.to(self.weight.dtype)
         k = self.weight.shape[-1]
         ph = _same_pads(x.shape[2], k, self.stride, self.dilation)
         pw = _same_pads(x.shape[3], k, self.stride, self.dilation)
@@ -78,25 +87,27 @@ class Deconv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x):
-        return F.conv_transpose2d(x, self.weight, self.bias, stride=2,
-                                  padding=1)
+        return F.conv_transpose2d(x.to(self.weight.dtype), self.weight,
+                                  self.bias, stride=2, padding=1)
 
 
 def bilinear_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Warp img [B, C, H, W] by flow [B, 2, H, W] (u, v) with the
-    reference's partial-warping mask: samples outside the image are 0."""
+    reference's partial-warping mask: samples outside the image are 0.
+    The coordinates stay f32 whatever img's dtype (bf16's ulp is 0.5 px
+    at 64 and above); the blend weights and values take img's dtype."""
     B, C, H, W = img.shape
     v, u = torch.meshgrid(
         torch.arange(H, dtype=torch.float32, device=img.device),
         torch.arange(W, dtype=torch.float32, device=img.device),
         indexing="ij",
     )
-    x = u[None] + flow[:, 0]
-    y = v[None] + flow[:, 1]
+    x = u[None] + flow[:, 0].float()
+    y = v[None] + flow[:, 1].float()
     x0 = torch.floor(x)
     y0 = torch.floor(y)
-    fx = (x - x0)[:, None]
-    fy = (y - y0)[:, None]
+    fx = (x - x0)[:, None].to(img.dtype)
+    fy = (y - y0)[:, None].to(img.dtype)
     flat = img.reshape(B, C, H * W)
 
     def gather(xi, yi):
@@ -222,3 +233,16 @@ class MaskNet(nn.Module):
         for c1, c2 in self.res:
             x = _lrelu(x + c2(_lrelu(c1(x))))
         return torch.sigmoid(self.out(x))
+
+
+_BF16 = weakref.WeakKeyDictionary()
+
+
+def bf16_copy(net: nn.Module) -> nn.Module:
+    """The bfloat16 twin of ``net`` (floating weights cast once, kept while
+    ``net`` lives)."""
+    twin = _BF16.get(net)
+    if twin is None:
+        twin = copy.deepcopy(net).to(torch.bfloat16)
+        _BF16[net] = twin
+    return twin

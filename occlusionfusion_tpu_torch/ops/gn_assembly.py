@@ -140,7 +140,7 @@ def point_term_accumulate_cuda(points, targets, point_valid, anchors,
         weights.data_ptr(), nodes.data_ptr(), R.data_ptr(), t.data_ptr(),
         float(sw), P, N, M.data_ptr(), b.data_ptr(), sq.data_ptr(),
     )
-    D.launch_counts["point_term_blocks"] += 1
+    D.count_launch("point_term_blocks")
 
 
 def point_term_accumulate(points, targets, point_valid, anchors, weights,
@@ -214,7 +214,7 @@ def arap_term_accumulate_cuda(nodes, R, t, edges, wa, wm, motion_targets,
         motion_targets.data_ptr(), N, E, M.data_ptr(), b.data_ptr(),
         sq.data_ptr(),
     )
-    D.launch_counts["arap_term_blocks"] += 1
+    D.count_launch("arap_term_blocks")
 
 
 def arap_term_accumulate(nodes, R, t, edges, wa, wm, motion_targets, M, b,

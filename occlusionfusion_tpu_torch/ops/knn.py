@@ -66,7 +66,14 @@ def _bias(valid, n: int, like: torch.Tensor) -> torch.Tensor:
 
 def knn_torch(queries, refs, k: int, valid=None):
     """Plain PyTorch twin: chunked dense distances + a stable sort.
-    Returns (sq_dists [P, k] f32, idx [P, k] int32)."""
+    Returns (sq_dists [P, k] f32, idx [P, k] int32).
+
+    Besides K1's twin, this is the port of ``knn_lax`` wherever the JAX
+    package calls that XLA function itself, on the card too: the Lepard
+    matcher's neighbourhoods (k = 24-30), its 1-NN upsampling and its
+    3-NN flow blend (``models/kpconv.py``, ``models/lepard.py``). K1
+    replaces the TPU kernel ``knn_pallas`` and takes k = 4 only; it keeps
+    the skinning calls."""
     queries = queries.to(torch.float32)
     refs = refs.to(torch.float32)
     P, N = queries.shape[0], refs.shape[0]
@@ -123,7 +130,7 @@ def knn_cuda(queries, refs, k: int, valid=None):
         None if valid is None else valid.data_ptr(), P, N, k, d2.data_ptr(),
         idx.data_ptr(),
     )
-    D.launch_counts["knn"] += 1
+    D.count_launch("knn")
     return d2, idx
 
 

@@ -77,7 +77,7 @@ def lbs_warp_cuda(points, anchors, weights, valid, state: WarpFieldState):
         weights.data_ptr(), valid.data_ptr(), nodes.data_ptr(),
         rot.data_ptr(), trans.data_ptr(), P, K, N, out.data_ptr(),
     )
-    D.launch_counts["lbs_warp"] += 1
+    D.count_launch("lbs_warp")
     return out
 
 

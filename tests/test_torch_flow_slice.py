@@ -150,8 +150,9 @@ def test_tracks_the_sphere(runs):
 
 @pytest.mark.parametrize("name", UNPORTED)
 def test_unported_settings_are_rejected(name):
-    value = {bool: True, int: 2, float: 0.5}[type(getattr(FusionConfig(),
-                                                          name))]
+    value = {bool: True, int: 2, float: 0.5, str: "override"}[
+        type(UNPORTED[name])]
+    assert getattr(FusionConfig(), name) == UNPORTED[name]
     with pytest.raises(NotImplementedError, match=name):
         FusionConfig(**{name: value})
 

@@ -2,7 +2,8 @@
 on the deforming sphere of tests/test_fusion_e2e.py (its small config,
 switched to solver="gn_dense", a dense volume and the motion GNN with
 the repo's checkpoint), 4 frames. Compared: the per-frame info vectors,
-the node transforms (1e-4) and the TSDF volume."""
+the node transforms (1e-4), the TSDF volume and get_deformed_mesh (faces
+exactly, vertices 1e-4 m as the transforms)."""
 
 import dataclasses
 
@@ -112,6 +113,15 @@ def test_tsdf_matches(runs):
     np.testing.assert_allclose(ft.tsdf.tsdf.numpy(), np.asarray(fj.tsdf.tsdf),
                                atol=1e-4)
     assert w_t.max() >= 3.0
+
+
+def test_deformed_mesh_matches(runs):
+    fj, _, ft, _, _ = runs
+    v_j, f_j = fj.get_deformed_mesh()
+    v, f = ft.get_deformed_mesh()
+    np.testing.assert_array_equal(f, f_j)
+    np.testing.assert_allclose(v, v_j, atol=1e-4)
+    assert np.abs(v - ft._extract_mesh_host()[0]).max() > 1e-3
 
 
 def test_tracks_the_sphere(runs):

@@ -1,7 +1,10 @@
 """Shared helpers of the tests/test_torch_*.py port tests: the same numpy
 inputs go to a JAX function and to its PyTorch port on the CPU."""
 
+import contextlib
+
 import numpy as np
+import pytest
 import torch
 
 import jax.numpy as jnp
@@ -84,3 +87,43 @@ def textured_sphere_frames(centers, h, w, intr, r):
         colors.append(np.where(hit[..., None], 128 + 100 * tex, 128.0)
                       .astype(np.float32))
     return depths, colors
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's torch ops on one thread (imported by the modules that
+    want it). Their tensors are small, and the tier-1 run has several
+    test workers on the machine's cores: torch's per-process pool of one
+    thread per core then only makes the workers wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@contextlib.contextmanager
+def jax_lepard_match_counts():
+    """Within the block, each call of the JAX Lepard matcher that the JAX
+    fused step traces (``models.lepard.scene_flow``, imported when the
+    step is traced) reports its match count, the sum of its blend mask,
+    through an ordered host callback into the list this yields, in call
+    order. JAX's caches are cleared on entry, so that a step traced
+    before is traced again with the callback."""
+    import jax
+
+    from occlusionfusion_tpu.models import lepard
+
+    orig, counts = lepard.scene_flow, []
+
+    def tapped(*args, **kwargs):
+        flow, mask, extra = orig(*args, **kwargs)
+        jax.debug.callback(lambda n: counts.append(int(n)), jnp.sum(mask),
+                           ordered=True)
+        return flow, mask, extra
+
+    jax.clear_caches()
+    lepard.scene_flow = tapped
+    try:
+        yield counts
+    finally:
+        lepard.scene_flow = orig
