@@ -6,10 +6,10 @@ NVIDIA card.
     python3 chip_smoke.py [--ptxas] --gn-compare TREE [TREE ...]
 
 ``--ptxas`` prints each kernel's registers and spills; ``--profile``
-traces frames 2-16 of the paths `main_path` and `envelope_flow` and one
-16-frame graph replay of the headline with torch.profiler and prints the
-device time by kernel name, the device's busy share over each traced
-window and the device ops per frame. The frames/s of a ``--profile`` run
+traces frames 2-16 of the paths `main_path` and `envelope_flow`, one
+16-frame graph replay of the headline and one N-ICP frame's replay with
+torch.profiler and prints the device time by kernel name, the device's
+busy share over each traced window and the device ops per frame. The frames/s of a ``--profile`` run
 include the profiler's start-up; read them from a run without it.
 
 Phases, each printing one JSON line with its wall seconds:
@@ -47,15 +47,20 @@ Phases, each printing one JSON line with its wall seconds:
      must reproduce the JAX package's result (NEAR_REFERENCE_Z);
   9. graph: the main path and the envelope again, 16 frames as eager
      steps and through the graph engine (fused_register_chunk): at each
-     frame the captured step from the eager state against the eager step
-     (counts equal; translations and the median node's rotation within
-     1e-5; the largest rotation difference within 3x that of two eager
-     steps, which differ by the atomics of K3', K4' and index_add_), and
-     the 16-frame replay against the eager run (median node translation
-     within 1 mm, the graph's launches per frame of each kernel equal to
-     the eager path's, and the kernels of one profiled replay counted by
-     name against them); then frames/s of the eager and the graph engine
-     in turns (eager, graph, graph, eager);
+     frame the captured step and the eager step, each run twice from the
+     same eager state (step_checks: counts equal; the median node's
+     rotation and translation within 1e-5; the 90th percentile over
+     nodes of the per-node differences within STEP_PERCENTILE_LIMITS or
+     3x the same between two eager or two graph steps, a statistic the
+     few rim nodes that the atomics of K3', K4' and index_add_ flip
+     cannot move; on the main path, which shows no flips, the largest
+     node difference too), the 16-frame replay
+     against the 16 eager steps (median node translation within 1 mm,
+     launches per frame equal), the launches of a 2-frame replay counted
+     from two profiler traces short enough to keep every record
+     (traced_replay_launches, which fails when the two disagree); then
+     frames/s of the eager and the graph engine in turns (eager, graph,
+     graph, eager);
  10. headline: bench.py's ENVELOPE_ENV configuration (bricked 128^3 at
      5 mm, 1024 slots, 256 nodes, 8192 points, GN 2 iterations, the motion
      GNN, PWC + MaskNet with the sparse lift in bf16 and MaskNet at half
@@ -71,12 +76,35 @@ Phases, each printing one JSON line with its wall seconds:
      before capture); then eager and graph frames/s in turns;
  11. parity: the main path, the envelope and the headline at a small size
      on the card (kernels, graph replays) and on the CPU (twins, eager
-     steps) must agree.
-Then one JSON line with the kernel table: every kernel on the main
-path's own inputs (K1 on each of its two calls), with its launches in
-the main path's run, and on the headline's, with its launches in the
-headline's run (K1 in initialize and the mesh; K2, K3' and K4' per
-replayed frame plus the one warm-up step before capture); then the
+     steps) must agree;
+ 12. nicp_path: the JAX FusionConfig defaults (solver "nicp" with
+     NICPConfig(iters=100), the motion GNN, bricks of 8 in 2048 slots) on
+     the main path's sphere through DynamicFusion.run_fused(chunk=16)
+     (one captured N-ICP step, replayed once per frame) and
+     get_deformed_mesh: the median node z within 1 mm of the JAX
+     package's result (NICP_REFERENCE_Z), each frame's correspondences
+     within 0.5% of JAX's, K1 (initialize, the mesh) and K2 (each frame
+     and the warm-up step) launched; K1 and K2 held to their twins on
+     this run's inputs; then phase graph's checks on this path at the
+     frames NICP_CHECK_FRAMES (the step checks without the max-over-nodes
+     limits; the traced replay is the step's with 2 Adam iterations) and
+     frames/s in
+     turns over NICP_RATE_FRAMES frames;
+ 13. stepwise: the same input through DynamicFusion.run (one eager
+     register_frame a frame), held to the JAX package's stepwise result
+     (STEPWISE_REFERENCE_Z, within 1 mm; correspondences within 0.5%),
+     with its frames/s and launches;
+ 14. nicp_solve: one N-ICP solve on the stepwise path's input at frame
+     TAP_FRAME, eager and from a CUDA graph, with the device ops and
+     device ms of one Adam iteration from traces of 10- and 20-iteration
+     solves and the top ops;
+ 15. parity of N-ICP (20 Adam iterations) as in phase 11.
+Each phase prints its wall seconds. Then one JSON line with the kernel
+table: every kernel on the main path's own inputs (K1 on each of its two
+calls), with its launches in the main path's run, on the headline's,
+with its launches in the headline's run (K1 in initialize and the mesh;
+K2, K3' and K4' per replayed frame plus the one warm-up step before
+capture), and K1 and K2 on the N-ICP path's, with its launches; then the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises and exits
 nonzero. Without a CUDA device, or without the port's package beside
@@ -168,6 +196,35 @@ HEADLINE_PARITY_LIMITS = dict(max_dt_m=1e-4, median_dt_m=2.5e-5,
                               max_dflow=3, max_dlepard=20)
 # chunk length of the graph engine (bench.py's BENCH_CHUNK)
 CHUNK = 16
+# phase graph's step checks (F5, step_checks): the median node's
+# rotation and translation, and the STEP_PERCENTILE-th percentile over
+# nodes of the per-node differences, captured step against eager step;
+# the percentile's limits are at least 3x the largest reading of the card
+# runs recorded in PERF.md (F5)
+STEP_MEDIAN_LIMIT = 1e-5
+STEP_PERCENTILE = 90
+STEP_PERCENTILE_LIMITS = dict(dt_m=1e-4, dR=1e-2)
+# the N-ICP paths (phases nicp_path, stepwise, nicp_solve): the JAX
+# FusionConfig defaults (solver "nicp", NICPConfig(iters=100), the
+# motion GNN, bricks of 8 at 128^3 in max_bricks 2048 slots) on the main
+# path's sphere; the JAX package's results on the CPU
+# (scripts/torch_nicp_reference.py; 297 nodes): the median node z
+# translation after N_FRAMES frames and each frame's correspondences, of
+# run_fused(chunk=16) and of the stepwise run, which the card must
+# reproduce within 1 mm and NICP_CORRESPONDENCE_TOL
+NICP_ITERS = 100
+NICP_MAX_BRICKS = 2048
+NICP_REFERENCE_Z = 0.06906302273273468
+STEPWISE_REFERENCE_Z = 0.06902046501636505
+NICP_REFERENCE_CORRESPONDENCES = [
+    8167, 8172, 8170, 8166, 8160, 8165, 8169, 8173, 8173, 8173, 8173, 8173,
+    8173, 8173, 8173, 8173]
+STEPWISE_REFERENCE_CORRESPONDENCES = NICP_REFERENCE_CORRESPONDENCES
+NICP_CORRESPONDENCE_TOL = 0.005
+# the N-ICP path's frames (indices) checked step by step, and its frames
+# timed in turns: an eager N-ICP step takes ~0.7 s
+NICP_CHECK_FRAMES = (0, 7, 15)
+NICP_RATE_FRAMES = 2
 # each kernel's __global__ function, as the profiler names it
 KERNEL_SYMBOLS = {"knn": "knn_kernel", "lbs_warp": "lbs_kernel",
                   "point_term_blocks": "point_term_accumulate_kernel",
@@ -597,6 +654,7 @@ def sphere_config(vol=VOL, voxel=VOXEL, max_points=MAX_POINTS, **kw):
         vol_dim=(vol, vol, vol), voxel_size=voxel, node_coverage=COVERAGE,
         max_nodes=MAX_NODES, max_points=max_points, max_depth_diff=0.05,
         graph=GraphConfig(node_coverage=COVERAGE, min_neighbors=2),
+        solver="gn_dense",
         gn=GNConfig(iters=GN_ITERS, w_point=1.0, w_arap=2.0, w_motion=1.0,
                     linear_solver="cholesky"),
         brick_size=0,
@@ -630,6 +688,7 @@ def headline_config(vol=HEADLINE["vol"], voxel=HEADLINE["voxel"],
         max_nodes=HEADLINE["max_nodes"], max_points=max_points,
         max_depth_diff=0.05,
         graph=GraphConfig(node_coverage=cov, min_neighbors=2),
+        solver="gn_dense",
         gn=GNConfig(iters=HEADLINE["gn_iters"], w_point=1.0, w_arap=2.0,
                     w_motion=1.0, linear_solver="cholesky"),
         brick_size=8, max_bricks=max_bricks, use_flow=True,
@@ -746,16 +805,16 @@ def check_tracking(fusion, state, info_np, centers, counts):
 
 class SolveTap:
     """Within the block, keeps the arguments of the ``at``-th call of the
-    fused step's solve_dense (that is, of frame ``at``): (GNProblem,
-    GNConfig, R, t)."""
+    fused step's solver ``name`` (``solve_dense`` or ``nicp_solve``; that
+    is, of frame ``at``): (problem, config, R, t)."""
 
-    def __init__(self, at):
-        self.at, self.calls, self.call = at, 0, None
+    def __init__(self, at, name="solve_dense"):
+        self.at, self.name, self.calls, self.call = at, name, 0, None
 
     def __enter__(self):
         from occlusionfusion_tpu_torch.fusion import fused_step
 
-        self.mod, self.orig = fused_step, fused_step.solve_dense
+        self.mod, self.orig = fused_step, getattr(fused_step, self.name)
 
         def tap(problem, config, init_rotations, init_translations):
             self.calls += 1
@@ -765,11 +824,11 @@ class SolveTap:
             return self.orig(problem, config, init_rotations,
                              init_translations)
 
-        fused_step.solve_dense = tap
+        setattr(fused_step, self.name, tap)
         return self
 
     def __exit__(self, *exc):
-        self.mod.solve_dense = self.orig
+        setattr(self.mod, self.name, self.orig)
 
 
 class KernelInputTap:
@@ -999,18 +1058,34 @@ def frames_on(dev, seq, ids):
             torch.as_tensor(np.stack([f.color for f in frames]), device=dev))
 
 
-def graph_replay_trace(graph, state, depths, colors):
-    """Kernel launches of one traced replay, by kernel (KERNEL_SYMBOLS),
-    and the device ms and ops of the replay."""
-    by_kernel = traced_device(lambda: graph.replay(state, depths, colors), 1)
-    counts = {k: sum(n for name, (_, n) in by_kernel.items() if sym in name)
-              for k, sym in KERNEL_SYMBOLS.items()}
-    return counts, (sum(v[0] for v in by_kernel.values()) / 1e3,
-                    sum(v[1] for v in by_kernel.values()))
+def traced_replay_launches(graph, state, depths, colors):
+    """F6: the kernel launches of one replay of a short graph, counted
+    from torch.profiler records. The profiler drops records of long
+    traces (one replay of the envelope's 16-frame graph, 45,673 device
+    ops, once lost a frame's kernels), so only a short graph is traced
+    (GN paths: 2 frames; N-ICP: one step with 2 Adam iterations), twice:
+    each trace's launches by kernel must equal the capture's, and the two
+    traces must count the same device ops, else a record was lost and
+    this fails.
+    Returns the launches, and the device ms and ops of the replay."""
+    traces = []
+    for _ in range(2):
+        by_kernel = traced_device(lambda: graph.replay(state, depths, colors),
+                                  1)
+        traces.append((
+            {k: sum(n for name, (_, n) in by_kernel.items() if sym in name)
+             for k, sym in KERNEL_SYMBOLS.items()},
+            sum(v[0] for v in by_kernel.values()) / 1e3,
+            sum(v[1] for v in by_kernel.values())))
+    for counts, _, _ in traces:
+        assert counts == graph.counts, (counts, graph.counts)
+    assert traces[0][2] == traces[1][2], (
+        "the profiler dropped records", traces[0][2], traces[1][2])
+    return traces[0]
 
 
 def engine_rates(fusion, sc, state, tables, net, depths, colors):
-    """frames/s of the eager steps and of one graph replay over the same
+    """frames/s of the eager steps and of the graph engine over the same
     F frames from the same state, in turns eager, graph, graph, eager
     (the chunk's graph captured and each engine run once before)."""
     import torch
@@ -1042,33 +1117,118 @@ def engine_rates(fusion, sc, state, tables, net, depths, colors):
         runs[name]()
         torch.cuda.synchronize()
         out[name].append(depths.shape[0] / (time.perf_counter() - t0))
-    return {"eager_frames_per_s": out["eager"],
+    return {"rate_frames": depths.shape[0],
+            "eager_frames_per_s": out["eager"],
             "graph_frames_per_s": out["graph"]}
 
 
-def node_transform_diff(a, b, n):
-    """(max |dR|, median over nodes of max |dR|, max |dt|) of two states'
-    first ``n`` nodes, as floats."""
+def node_diff_stats(a, b, n):
+    """Per-node differences of two states' first ``n`` nodes (the largest
+    |dR| entry and the largest |dt| entry of each node): their largest,
+    STEP_PERCENTILE-th percentile and median over the nodes."""
+    import numpy as np
+
     dR = (a.rotations[:n] - b.rotations[:n]).abs().amax((1, 2))
-    dt = (a.translations[:n] - b.translations[:n]).abs().max()
-    return float(dR.max()), float(dR.median()), float(dt)
+    dt = (a.translations[:n] - b.translations[:n]).abs().amax(1)
+    out = {}
+    for name, x in (("dR", dR.cpu().numpy()), ("dt_m", dt.cpu().numpy())):
+        out[f"max_{name}"] = float(x.max())
+        out[f"p{STEP_PERCENTILE}_{name}"] = float(
+            np.percentile(x, STEP_PERCENTILE))
+        out[f"median_{name}"] = float(np.median(x))
+    return out
 
 
-def phase_graph(dev):
-    """The main path and the envelope through the graph engine against
-    the eager steps, on the same 16 frames.
+def step_checks(eager, graph, state0, n, frames, check, max_limits):
+    """F5: at each frame of ``check`` (indices into the F frames) the
+    captured step (``graph(state, j)``, a one-step graph) and the eager
+    step (``eager(state, j)``) each run twice from the same state, which
+    then advances by the eager step (by the graph's elsewhere). Holds
+    graph to eager: info counts equal; the median node's rotation and
+    translation within STEP_MEDIAN_LIMIT; at each frame the
+    STEP_PERCENTILE-th percentile over nodes, a statistic the few rim
+    nodes that the atomics' rounding flips cannot move, within
+    STEP_PERCENTILE_LIMITS or within 3x the same percentile between the
+    two eager steps or the two graph steps of that frame, whichever is
+    larger (where the state is weakly held, that rounding moves many
+    nodes, between two eager steps as between graph and eager); with
+    ``max_limits`` (the main path, which shows no flips) the largest node
+    difference too (translation within 1e-5, rotation within 3x the
+    largest between the two eager steps, or 1e-5). Returns the largest
+    reading over the checked frames of each statistic, graph against
+    eager, eager against eager and graph against graph, the largest share
+    of its limit a percentile took, and the launches of one eager
+    step."""
+    import numpy as np
 
-    K3', K4' and index_add_ add with atomics, so two eager runs of one
-    frame already differ by rounding, and over 16 frames the weakly held
-    rotations of rim nodes and the discrete gates of the correspondences
-    amplify it (two eager runs of the envelope end up to ~0.2 mm apart;
-    PERF.md §6). So the captured step is held to the eager step frame
-    by frame, each from the eager state of that frame: counts equal,
-    translations and the median node's rotation within 1e-5, the largest
-    rotation difference within 3x the largest between two eager steps
-    (or 1e-5). The 16-frame replay is held to the eager run by its
-    launches per frame (and those of one profiled replay, by kernel
-    name) and its median node translation (within 1 mm)."""
+    from occlusionfusion_tpu_torch import device as D
+
+    rows = {"graph_vs_eager": [], "eager_vs_eager": [], "graph_vs_graph": []}
+    counts_equal, st, step_launches = True, state0, None
+    for j in range(frames):
+        if j not in check:
+            st = graph(st, j)[0]
+            continue
+        D.reset_launch_counts()
+        e1, ie1 = eager(st, j)
+        step_launches = step_launches or dict(D.launch_counts)
+        e2, ie2 = eager(st, j)
+        (g1, ig1), (g2, ig2) = graph(st, j), graph(st, j)
+        for ie, ig in ((ie1, ig1), (ie2, ig2)):
+            counts_equal &= bool(np.array_equal(
+                ie.cpu().numpy()[[1, 2, 4, 5]], ig.cpu().numpy()[0, [1, 2, 4, 5]]))
+        ge = (node_diff_stats(e1, g1, n), node_diff_stats(e2, g2, n))
+        rows["graph_vs_eager"].append({k: max(d[k] for d in ge)
+                                       for k in ge[0]})
+        rows["eager_vs_eager"].append(node_diff_stats(e1, e2, n))
+        rows["graph_vs_graph"].append(node_diff_stats(g1, g2, n))
+        st = e1
+    out = {f"step_{kind}_{k}": max(r[k] for r in rs)
+           for kind, rs in rows.items() for k in rs[0]}
+    ge = {k: max(r[k] for r in rows["graph_vs_eager"])
+          for k in rows["graph_vs_eager"][0]}
+    p = STEP_PERCENTILE
+    # each frame's percentile against the larger of the absolute limit
+    # and 3x that frame's run-to-run reading
+    share = {k: max(g[f"p{p}_{k}"] / max(v, 3 * e[f"p{p}_{k}"],
+                                         3 * gg[f"p{p}_{k}"])
+                    for g, e, gg in zip(*rows.values()))
+             for k, v in STEP_PERCENTILE_LIMITS.items()}
+    out.update(step_frames_checked=[j + 1 for j in check],
+               step_counts_equal=counts_equal,
+               step_graph_vs_eager_p_dt_m_per_frame=[
+                   r[f"p{p}_dt_m"] for r in rows["graph_vs_eager"]],
+               step_limits={"median": STEP_MEDIAN_LIMIT,
+                            **{f"p{p}_{k}": v for k, v in
+                               STEP_PERCENTILE_LIMITS.items()}},
+               **{f"step_p{p}_{k}_share_of_limit": v
+                  for k, v in share.items()},
+               eager_step_launches=step_launches)
+
+    def check_limits():
+        assert counts_equal, rows
+        assert ge["median_dR"] <= STEP_MEDIAN_LIMIT, ge
+        assert ge["median_dt_m"] <= STEP_MEDIAN_LIMIT, ge
+        for k, v in share.items():
+            assert v <= 1.0, (k, v, rows)
+        if max_limits:
+            assert ge["max_dt_m"] <= 1e-5, ge
+            assert ge["max_dR"] <= max(
+                1e-5, 3 * out["step_eager_vs_eager_max_dR"]), out
+
+    return out, check_limits
+
+
+def graph_case(path, fusion, sc, state0, tables, net, depths, colors,
+               check, max_limits, rate_frames, full_eager):
+    """Phase graph's checks of one path (see phase_graph), from
+    ``state0`` over the frames ``depths``/``colors``: the step checks
+    (step_checks) at the frames ``check``; with ``full_eager`` the
+    F-frame replay against F eager steps (median node translation within
+    1 mm, launches per frame equal); the launches of one traced replay of
+    a short graph (traced_replay_launches); frames/s of both engines over
+    the first ``rate_frames`` frames. Emits and returns the phase's row;
+    every check is made after the row is emitted."""
     import numpy as np
     import torch
 
@@ -1077,6 +1237,112 @@ def phase_graph(dev):
         fused_register_chunk,
         fused_register_frame,
     )
+
+    perception = (fusion.flow_net, fusion.mask_net, fusion.lepard_net)
+    n, F = fusion.node_count, depths.shape[0]
+
+    def eager(st, j):
+        return fused_register_frame(sc, st, tables, net, depths[j], colors[j],
+                                    fusion.intr, *perception)
+
+    def chunk(st, lo, hi, config=sc):
+        return fused_register_chunk(
+            config, st, tables, net, depths[lo:hi], colors[lo:hi],
+            fusion.intr, *perception, graphs=fusion.graphs)
+
+    def graph_of(steps, config=sc):
+        return fusion.graphs[next(k for k in fusion.graphs if k[0] == config
+                                  and k[1] == steps and k[5] == id(tables))]
+
+    out = {"phase": "graph", "path": path, "frames": F, "nodes": n}
+    checks = []
+    if full_eager:
+        torch.cuda.synchronize()
+        D.reset_launch_counts()
+        st, rows = state0, []
+        for j in range(F):
+            st, info = eager(st, j)
+            rows.append(info)
+        torch.cuda.synchronize()
+        eager_counts = dict(D.launch_counts)
+        state_e, info_e = st, torch.stack(rows).cpu().numpy()
+        state_g, info_g = chunk(state0, 0, F)
+        info_g = info_g.cpu().numpy()
+        full = graph_of(F)
+        med_e = np.median(state_e.translations[:n].cpu().numpy(), axis=0)
+        med_g = np.median(state_g.translations[:n].cpu().numpy(), axis=0)
+        out.update(
+            chunk_median_translation_diff_m=float(np.abs(med_e - med_g).max()),
+            chunk_diff=node_diff_stats(state_e, state_g, n),
+            chunk_counts_equal_frames=int(np.sum(np.all(
+                info_e[:, [1, 2, 4, 5]] == info_g[:, [1, 2, 4, 5]], axis=1))),
+            eager_launches=eager_counts,
+            graph_launches_per_replay=full.counts,
+            capture_s=full.capture_s)
+
+        def check_full():
+            assert np.abs(med_e - med_g).max() <= 1e-3, (med_e, med_g)
+            for k in ("lbs_warp", "point_term_blocks", "arap_term_blocks"):
+                assert eager_counts[k] == full.counts[k] > 0, (
+                    k, eager_counts, full.counts)
+
+        checks.append(check_full)
+    steps, check_steps = step_checks(eager, lambda st, j: chunk(st, j, j + 1),
+                                     state0, n, F, check, max_limits)
+    out.update(steps)
+    checks.append(check_steps)
+    # F6: the launches of a replay short enough that the profiler keeps
+    # every record, traced: 2 frames of the GN paths; the N-ICP step's
+    # own graph is ~32k device ops (one trace of it lost 684 records), so
+    # the same step with 2 Adam iterations; the real graphs' launches must
+    # be as many per frame
+    short_sc, short_frames = sc, 2
+    if not full_eager:
+        short_sc, short_frames = sc._replace(
+            nicp=sc.nicp._replace(iters=2)), 1
+    chunk(state0, 0, short_frames, short_sc)
+    short = graph_of(short_frames, short_sc)
+    traced, replay_ms, replay_ops = traced_replay_launches(
+        short, state0, depths[:short_frames], colors[:short_frames])
+    one_step = graph_of(1)
+    out.update(traced_replay_frames=short_frames,
+               traced_launches_per_replay=traced,
+               traced_replay_device_ms=replay_ms,
+               traced_replay_device_ops=replay_ops,
+               traced_device_ops_per_frame=replay_ops / short_frames,
+               one_step_graph_launches=one_step.counts,
+               one_step_capture_s=one_step.capture_s)
+
+    def check_launches():
+        per_frame = {k: v // short_frames for k, v in traced.items()}
+        assert per_frame == one_step.counts, (per_frame, one_step.counts)
+        if full_eager:
+            assert {k: v * F for k, v in per_frame.items()} == full.counts, (
+                traced, full.counts)
+        assert steps["eager_step_launches"] == one_step.counts, (
+            steps["eager_step_launches"], one_step.counts)
+        assert one_step.counts["lbs_warp"] == 1
+
+    checks.append(check_launches)
+    try:
+        for c in checks:
+            c()
+        out.update(engine_rates(fusion, sc, state0, tables, net,
+                                depths[:rate_frames], colors[:rate_frames]))
+    finally:
+        emit(out)
+    return out
+
+
+def phase_graph(dev):
+    """The main path and the envelope through the graph engine against
+    the eager steps, on the same 16 frames (graph_case): every frame's
+    captured step against its eager step from the same state (F5,
+    step_checks; max-over-nodes limits on the main path only), the
+    16-frame replay against the 16 eager steps, the launches of a traced
+    2-frame replay (F6), frames/s in turns."""
+    import torch
+
     from occlusionfusion_tpu_torch.fusion.pipeline import DynamicFusion
     from occlusionfusion_tpu_torch.models.checkpoint import (
         load_flow_nets,
@@ -1097,84 +1363,10 @@ def phase_graph(dev):
         fusion.initialize(seq.load(0))
         sc, state0, tables = fusion.build_fused(net)
         depths, colors = frames_on(dev, seq, range(1, N_FRAMES + 1))
-        perception = (fusion.flow_net, fusion.mask_net, fusion.lepard_net)
-        n = fusion.node_count
-
-        def eager(st, j):
-            with torch.no_grad():
-                return fused_register_frame(sc, st, tables, net, depths[j],
-                                            colors[j], fusion.intr,
-                                            *perception)
-
-        def chunk(st, lo, hi):
-            return fused_register_chunk(
-                sc, st, tables, net, depths[lo:hi], colors[lo:hi],
-                fusion.intr, *perception, graphs=fusion.graphs)
-
-        torch.cuda.synchronize()
-        D.reset_launch_counts()
-        st, rows = state0, []
-        for j in range(N_FRAMES):
-            st, info = eager(st, j)
-            rows.append(info)
-        torch.cuda.synchronize()
-        eager_counts = dict(D.launch_counts)
-        state_e, info_e = st, torch.stack(rows).cpu().numpy()
-        state_g, info_g = chunk(state0, 0, N_FRAMES)
-        info_g = info_g.cpu().numpy()
-        graph = fusion.graphs[next(k for k in fusion.graphs
-                                   if k[1][0] == N_FRAMES)]
-        # frame by frame from the eager states: graph step, eager step
-        # and a second eager step
-        st, steps = state0, []
-        for j in range(N_FRAMES):
-            se, ie = eager(st, j)
-            sg, ig = chunk(st, j, j + 1)
-            steps.append(node_transform_diff(se, sg, n)
-                         + node_transform_diff(se, eager(st, j)[0], n)[:1]
-                         + (bool(np.array_equal(ie.cpu().numpy()[[1, 2, 4, 5]],
-                                                ig.cpu().numpy()[0, [1, 2, 4, 5]])),))
-            st = se
-        steps = np.array(steps)  # dR, dR median, dt, eager-eager dR, same
-        med_e = np.median(state_e.translations[:n].cpu().numpy(), axis=0)
-        med_g = np.median(state_g.translations[:n].cpu().numpy(), axis=0)
-        dR16, _, dt16 = node_transform_diff(state_e, state_g, n)
-        traced, (replay_ms, replay_ops) = graph_replay_trace(
-            graph, state0, depths, colors)
-        out = {"phase": "graph", "path": path, "frames": N_FRAMES,
-               "nodes": n,
-               "step_max_dR": float(steps[:, 0].max()),
-               "step_max_median_node_dR": float(steps[:, 1].max()),
-               "step_max_dt_m": float(steps[:, 2].max()),
-               "step_eager_vs_eager_max_dR": float(steps[:, 3].max()),
-               "step_counts_equal": bool(steps[:, 4].all()),
-               "chunk_max_dR": dR16, "chunk_max_dt_m": dt16,
-               "chunk_median_translation_diff_m": float(
-                   np.abs(med_e - med_g).max()),
-               "chunk_counts_equal_frames": int(np.sum(np.all(
-                   info_e[:, [1, 2, 4, 5]] == info_g[:, [1, 2, 4, 5]],
-                   axis=1))),
-               "eager_launches": eager_counts,
-               "graph_launches_per_replay": graph.counts,
-               "traced_launches_per_replay": traced,
-               "replay_device_ms_traced": replay_ms,
-               "replay_device_ops": replay_ops}
-        try:
-            assert steps[:, 4].all(), steps
-            assert steps[:, 2].max() <= 1e-5, steps
-            assert steps[:, 1].max() <= 1e-5, steps
-            assert steps[:, 0].max() <= max(1e-5, 3 * steps[:, 3].max()), (
-                steps)
-            assert np.abs(med_e - med_g).max() <= 1e-3, (med_e, med_g)
-            for k in ("lbs_warp", "point_term_blocks", "arap_term_blocks"):
-                assert eager_counts[k] == graph.counts[k] > 0, (
-                    k, eager_counts, graph.counts)
-            assert traced == graph.counts, (traced, graph.counts)
-            out.update(engine_rates(fusion, sc, state0, tables, net, depths,
-                                    colors))
-        finally:
-            emit(out)
-        del fusion, sc, state0, tables, state_e, state_g, graph
+        graph_case(path, fusion, sc, state0, tables, net, depths, colors,
+                   check=range(N_FRAMES), max_limits=path == "main_path",
+                   rate_frames=N_FRAMES, full_eager=True)
+        del fusion, sc, state0, tables
         torch.cuda.empty_cache()
 
 
@@ -1272,7 +1464,7 @@ def phase_headline(dev, profile=False):
     rates = engine_rates(fusion, sc, state0, tables, net, depths, colors)
     emit({"phase": "headline_rates", **rates})
     if profile:
-        (graph,) = [g for k, g in fusion.graphs.items() if k[4] == id(tables)]
+        (graph,) = [g for k, g in fusion.graphs.items() if k[5] == id(tables)]
         with profiled(True) as prof:
             t0 = time.perf_counter()
             graph.replay(state0, depths, colors)
@@ -1301,9 +1493,11 @@ def headline_rows(ktap, mtap, solve):
     return rows
 
 
-def phase_parity(dev):
-    """The three paths at a small size (tests/test_torch_fusion_slice.py's
-    and tests/test_torch_flow_slice.py's: 48^3, 128x128, 4 frames) on the
+def phase_parity(dev, paths):
+    """The ``paths`` among the main path, the envelope, the headline and
+    N-ICP (20 Adam iterations) at a small size
+    (tests/test_torch_fusion_slice.py's and tests/test_torch_flow_slice.py's:
+    48^3, 128x128, 4 frames) on the
     card (kernels, graph replays) and on the CPU (twins, eager steps):
     per-frame info and node transforms must agree. The headline runs its
     perception in bf16, which rounds differently in cuDNN and on the CPU,
@@ -1321,6 +1515,7 @@ def phase_parity(dev):
         load_motion_complete_net,
     )
     from occlusionfusion_tpu_torch.solvers.gauss_newton import GNConfig
+    from occlusionfusion_tpu_torch.solvers.nicp import NICPConfig
 
     small = dict(
         vol_dim=(48, 48, 48), voxel_size=0.008, node_coverage=0.04,
@@ -1330,10 +1525,12 @@ def phase_parity(dev):
     gn = dict(iters=6, w_point=1.0, w_arap=10.0, w_motion=1.0)
     cases = {
         "main_path": (sphere_sequence(5, 128, 128, 0.1, 0.004)[0],
-                      FusionConfig(gn=GNConfig(**gn), **small), False),
+                      FusionConfig(solver="gn_dense", gn=GNConfig(**gn),
+                                   **small), False),
         "envelope_flow": (
             sphere_sequence(5, 128, 128, 0.1, 0.004, textured=True)[0],
-            FusionConfig(gn=GNConfig(**gn), brick_size=8, max_bricks=256,
+            FusionConfig(solver="gn_dense", gn=GNConfig(**gn), brick_size=8,
+                         max_bricks=256,
                          use_flow=True, **small),
             True),
         "headline": (
@@ -1341,8 +1538,11 @@ def phase_parity(dev):
             headline_config(vol=48, voxel=0.008, max_points=2048,
                             max_bricks=256, lepard_targets=512),
             "headline"),
+        "nicp": (sphere_sequence(5, 128, 128, 0.1, 0.004)[0],
+                 FusionConfig(nicp=NICPConfig(iters=20), **small), False),
     }
-    for path, (seq, cfg, flow) in cases.items():
+    for path in paths:
+        seq, cfg, flow = cases[path]
         runs = {}
         for d in (dev, "cpu"):
             nets = {}
@@ -1386,6 +1586,238 @@ def phase_parity(dev):
             assert sum(i["n_flow_filled"] for i in ig) > 0, "no flow fill"
         if flow == "headline":
             assert sum(i["n_lepard_matches"] for i in ig) > 0, "no matches"
+
+
+def nicp_config(vol=VOL, voxel=VOXEL, max_points=MAX_POINTS,
+                iters=NICP_ITERS, max_bricks=NICP_MAX_BRICKS):
+    """The JAX FusionConfig defaults (solver "nicp" with
+    NICPConfig(iters), the motion GNN, brick_size -1: bricks of 8 at
+    128^3, dense below) with the main path's sphere settings."""
+    from occlusionfusion_tpu_torch.fusion.pipeline import FusionConfig
+    from occlusionfusion_tpu_torch.graph.edgraph import GraphConfig
+    from occlusionfusion_tpu_torch.solvers.nicp import NICPConfig
+
+    cfg = FusionConfig(
+        vol_dim=(vol, vol, vol), voxel_size=voxel, node_coverage=COVERAGE,
+        max_nodes=MAX_NODES, max_points=max_points, max_depth_diff=0.05,
+        graph=GraphConfig(node_coverage=COVERAGE, min_neighbors=2),
+        nicp=NICPConfig(iters=iters), max_bricks=max_bricks,
+    )
+    assert cfg.solver == "nicp" and cfg.brick_size == -1
+    return cfg
+
+
+def check_against_reference(med_z, infos, ref_z, ref_corr):
+    """Median node z within 1 mm of the JAX package's, each frame's
+    correspondences within NICP_CORRESPONDENCE_TOL of its."""
+    import numpy as np
+
+    assert len(infos) == N_FRAMES
+    assert all(i["solve_valid"] for i in infos), infos
+    assert all(np.isfinite(i["final_loss"]) for i in infos), infos
+    assert abs(med_z - ref_z) <= 1e-3, (med_z, ref_z)
+    got = [i["n_correspondences"] for i in infos]
+    assert all(abs(a - b) <= NICP_CORRESPONDENCE_TOL * b
+               for a, b in zip(got, ref_corr)), (got, ref_corr)
+
+
+def phase_nicp_path(dev, profile=False):
+    """The JAX defaults (nicp_config) on the main path's sphere through
+    run_fused(chunk=16) (N-ICP: one captured step, replayed per frame)
+    and get_deformed_mesh, with the launch counts set to 0 just before and
+    read just after, held to the JAX package's result; K1's and K2's
+    inputs kept (initialize; the warm-up step before capture). Then the
+    graph checks from a fresh initialize (graph_case, at the frames
+    NICP_CHECK_FRAMES) and, with ``profile``, one traced frame. Returns
+    the launch counts and the kernel rows on this path's inputs."""
+    import numpy as np
+    import torch
+
+    from occlusionfusion_tpu_torch import device as D
+    from occlusionfusion_tpu_torch.fusion.pipeline import DynamicFusion
+    from occlusionfusion_tpu_torch.models.checkpoint import (
+        load_motion_complete_net,
+    )
+
+    seq, centers = sphere_sequence(N_FRAMES + 1, IMG_H, IMG_W, RADIUS, STEP_Z,
+                                   DISTANCE)
+    net = load_motion_complete_net(device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    D.reset_launch_counts()
+    t0 = time.perf_counter()
+    fusion = DynamicFusion(seq, nicp_config(), device=dev)
+    with KernelInputTap(1) as ktap:
+        infos = fusion.run_fused(chunk=CHUNK, motion_net=net)
+        verts, faces = fusion.get_deformed_mesh()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(D.launch_counts)
+    (graph,) = fusion.graphs.values()
+    n = fusion.node_count
+    med = np.median(fusion.warp.translations[:n].cpu().numpy(), axis=0)
+    motion = centers[-1] - centers[0]
+    out = {
+        "phase": "nicp_path", "wall_s": wall, "capture_s": graph.capture_s,
+        "graph_steps": graph.steps, "frames": len(infos), "nodes": n,
+        "model_points": fusion.model_point_count,
+        "active_bricks": int((fusion.brick_ids >= 0).sum()),
+        "voxel_slots": int(fusion.vox_points.shape[0]),
+        "valid_voxels": int(fusion.vox_table.valid.sum()),
+        "mesh_vertices": int(verts.shape[0]),
+        "median_node_translation": med.tolist(),
+        "reference_median_z": NICP_REFERENCE_Z,
+        "tracking_error_z_m": float(med[2] - motion[2]),
+        "sphere_motion": motion.tolist(),
+        "n_correspondences": [i["n_correspondences"] for i in infos],
+        "reference_n_correspondences": NICP_REFERENCE_CORRESPONDENCES,
+        "final_loss": [i["final_loss"] for i in infos],
+        "launches": counts, "launches_per_replay": graph.counts,
+        "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
+    }
+    try:
+        check_against_reference(med[2], infos, NICP_REFERENCE_Z,
+                                NICP_REFERENCE_CORRESPONDENCES)
+        assert not fusion.track_lost
+        assert np.isfinite(verts).all() and faces.shape[0] > 0
+        assert fusion.brick_size == 8 and 200 <= n <= MAX_NODES, n
+        assert graph.steps == 1
+        # K1: initialize (voxel slots, model points) and the mesh; K2 in
+        # every replayed frame plus the warm-up step before capture
+        assert graph.counts == {"knn": 0, "lbs_warp": 1,
+                                "point_term_blocks": 0,
+                                "arap_term_blocks": 0}, graph.counts
+        assert counts == {"knn": 3, "lbs_warp": N_FRAMES + 1,
+                          "point_term_blocks": 0,
+                          "arap_term_blocks": 0}, counts
+    finally:
+        emit(out)
+    rows = []
+    for P in (int(fusion.vox_points.shape[0]),
+              int(fusion.model_points.shape[0])):
+        q, refs, _, valid = ktap.knn[P]
+        rows.append(knn_row(f"nicp_path_initialize_P{P}", q, refs, valid)[0])
+    rows.append(lbs_row("nicp_path_warmup_frame_1", *ktap.lbs))
+    del ktap
+    # the graph checks, from a fresh initialize
+    fusion.initialize(seq.load(0))
+    sc, state0, tables = fusion.build_fused(net)
+    depths, colors = frames_on(dev, seq, range(1, N_FRAMES + 1))
+    graph_case("nicp_path", fusion, sc, state0, tables, net, depths, colors,
+               check=NICP_CHECK_FRAMES, max_limits=False,
+               rate_frames=NICP_RATE_FRAMES, full_eager=False)
+    if profile:
+        (step,) = [g for k, g in fusion.graphs.items()
+                   if k[0] == sc and k[5] == id(tables)]
+        with profiled(True) as prof:
+            t0 = time.perf_counter()
+            step.replay(state0, depths[:1], colors[:1])
+            torch.cuda.synchronize()
+            t_window = time.perf_counter() - t0
+        report_profile(prof, t_window, "nicp_path_graph_replay", 1)
+    del fusion, sc, state0, tables
+    torch.cuda.empty_cache()
+    return counts, rows
+
+
+def phase_stepwise(dev):
+    """The N-ICP path's input through the stepwise loop
+    (DynamicFusion.run, one eager register_frame a frame), with the launch
+    counts set to 0 just before and read just after, held to the JAX
+    package's stepwise result. Returns the launch counts and the N-ICP
+    solve's input at frame TAP_FRAME."""
+    import numpy as np
+    import torch
+
+    from occlusionfusion_tpu_torch import device as D
+    from occlusionfusion_tpu_torch.fusion.pipeline import DynamicFusion
+    from occlusionfusion_tpu_torch.models.checkpoint import (
+        load_motion_complete_net,
+    )
+
+    seq, centers = sphere_sequence(N_FRAMES + 1, IMG_H, IMG_W, RADIUS, STEP_Z,
+                                   DISTANCE)
+    net = load_motion_complete_net(device=dev)
+    fusion = DynamicFusion(seq, nicp_config(), device=dev)
+    # each frame's seconds: register_frame reads its info back, so a
+    # frame has ended on the card when it returns
+    times, register = [], fusion.register_frame
+
+    def timed(frame, motion_net=None):
+        t = time.perf_counter()
+        info = register(frame, motion_net)
+        times.append(time.perf_counter() - t)
+        return info
+
+    fusion.register_frame = timed
+    torch.cuda.synchronize()
+    D.reset_launch_counts()
+    t0 = time.perf_counter()
+    with SolveTap(TAP_FRAME, "nicp_solve") as tap:
+        infos = fusion.run(motion_net=net)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(D.launch_counts)
+    n = fusion.node_count
+    med = np.median(fusion.warp.translations[:n].cpu().numpy(), axis=0)
+    motion = centers[-1] - centers[0]
+    out = {
+        "phase": "stepwise", "wall_s": wall, "frames": len(infos),
+        "nodes": n, "init_s": wall - sum(times),
+        "frames_per_s": N_FRAMES / sum(times),
+        "frames_per_s_after_first": (N_FRAMES - 1) / sum(times[1:]),
+        "median_node_translation": med.tolist(),
+        "reference_median_z": STEPWISE_REFERENCE_Z,
+        "tracking_error_z_m": float(med[2] - motion[2]),
+        "n_correspondences": [i["n_correspondences"] for i in infos],
+        "launches": counts,
+    }
+    try:
+        check_against_reference(med[2], infos, STEPWISE_REFERENCE_Z,
+                                STEPWISE_REFERENCE_CORRESPONDENCES)
+        assert not fusion.track_lost
+        assert counts == {"knn": 2, "lbs_warp": N_FRAMES,
+                          "point_term_blocks": 0,
+                          "arap_term_blocks": 0}, counts
+        assert tap.call is not None
+    finally:
+        emit(out)
+    return counts, tap.call
+
+
+def phase_nicp_solve(call):
+    """One N-ICP solve (NICP_ITERS Adam iterations) on the stepwise N-ICP
+    path's input at frame TAP_FRAME: ms eager (one call after another)
+    and from a CUDA graph; device ops and device ms per Adam iteration
+    from traces of 10- and 20-iteration solves (their difference over 10
+    iterations; the fixed set-up and final cost cancel), and the top ops
+    of the 10-iteration trace."""
+    from occlusionfusion_tpu_torch.solvers import nicp as NI
+
+    problem, config, R, t = call
+
+    def solve(cfg):
+        return lambda: NI.solve(problem, cfg, R, t)
+
+    eager = cuda_ms(solve(config), 1, 2)
+    graph = graph_ms(solve(config), 1, 5)
+    traces = {it: traced_device(solve(config._replace(iters=it)), 1)
+              for it in (10, 20)}
+    ops = {it: sum(v[1] for v in tr.values()) for it, tr in traces.items()}
+    ms = {it: sum(v[0] for v in tr.values()) / 1e3
+          for it, tr in traces.items()}
+    emit({"phase": "nicp_solve", "input": f"stepwise_frame_{TAP_FRAME}",
+          "iters": config.iters, "eager_ms": eager[0],
+          "eager_ms_min_max": eager[1:], "graph_ms": graph[0],
+          "graph_ms_min_max": graph[1:],
+          "device_ops_per_adam_iteration": (ops[20] - ops[10]) / 10,
+          "device_ms_per_adam_iteration": (ms[20] - ms[10]) / 10,
+          "solve_10_iterations_device_ops": ops[10],
+          "solve_10_iterations_device_ms": ms[10],
+          "top_10_iterations": [
+              {"name": k[:80], "ms": us / 1e3, "calls": n}
+              for k, (us, n) in sorted(traces[10].items(),
+                                       key=lambda kv: -kv[1][0])[:12]]})
 
 
 def traced_device(fn, reps):
@@ -1600,8 +2032,29 @@ def main(argv) -> int:
     emit({"phase": "near_done", "s": time.perf_counter() - t})
 
     t = time.perf_counter()
-    phase_parity(dev)
+    phase_parity(dev, ("main_path", "envelope_flow", "headline"))
     emit({"phase": "parity_done", "s": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    counts, nicp_rows = phase_nicp_path(dev, profile)
+    for row in nicp_rows:
+        row["launches"] = counts[row["name"]]
+        emit({"phase": "kernel", **row})
+    rows += nicp_rows
+    emit({"phase": "nicp_path_done", "s": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    _, solve_call = phase_stepwise(dev)
+    emit({"phase": "stepwise_done", "s": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    phase_nicp_solve(solve_call)
+    del solve_call
+    emit({"phase": "nicp_solve_done", "s": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    phase_parity(dev, ("nicp",))
+    emit({"phase": "parity_nicp_done", "s": time.perf_counter() - t})
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -2,29 +2,34 @@
 ``occlusionfusion_tpu/fusion/fused_step.py``).
 
 One frame: deform the model, projective correspondences and node
-visibility, optionally PWC flow correspondences weighted by MaskNet,
-per-node motion observations, motion completion, the dense Gauss-Newton
-warp solve, then the voxel LBS warp (kernel K2 on CUDA) and the TSDF
-integrate. The graph-dependent tables are device-resident constants
-between keyframes. Nothing in the step reads a value back to the host,
-so frames queue on the card back to back, and a CUDA graph can capture
-whole chunks of steps.
+visibility, optionally PWC flow correspondences weighted by MaskNet and
+Lepard scene flow, per-node motion observations, motion completion, the
+warp solve (N-ICP, the default, or dense Gauss-Newton), then the voxel
+LBS warp (kernel K2 on CUDA) and the TSDF integrate. The graph-dependent
+tables are device-resident constants between keyframes. Nothing in the
+step reads a value back to the host, so frames queue on the card back to
+back, and a CUDA graph can capture them.
 
 ``fused_register_chunk`` is the counterpart of the JAX ``lax.scan`` over
 a chunk of F frames: on the CPU it runs the F steps in order; on the card
-it replays one CUDA graph that holds all F steps, captured once per
-(step config, F) over static device buffers.
+it replays a CUDA graph over static device buffers, captured once per
+(step config, chunk shape): with dense Gauss-Newton one graph holds all F
+steps; with N-ICP (100 Adam iterations, ~32k device ops a step) one
+graph holds one step and is replayed F times, each frame copied into its
+input buffer in stream order before its replay.
 
-Ported: ``solver="gn_dense"`` with projective correspondences, the
-motion GNN, flow in fill mode with MaskNet weights (dense or sparse lift;
-the sparse lift with optional bf16 nets and a 1/N-resolution MaskNet),
-and the Lepard matcher every frame on a deterministic subsample of the
-target depth; ``FusionConfig`` (``fusion/pipeline.py``) rejects the
-settings of the branches not ported.
+Ported: ``solver="nicp"`` and ``"gn_dense"`` with projective
+correspondences, the motion GNN, flow in fill mode with MaskNet weights
+(dense or sparse lift; the sparse lift with optional bf16 nets and a
+1/N-resolution MaskNet), and the Lepard matcher every frame on a
+deterministic subsample of the target depth; ``FusionConfig``
+(``fusion/pipeline.py``) rejects the settings of the branches not
+ported.
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import torch
@@ -57,6 +62,8 @@ from occlusionfusion_tpu_torch.models.lepard import scene_flow
 from occlusionfusion_tpu_torch.ops.lbs import lbs_warp
 from occlusionfusion_tpu_torch.solvers.gauss_newton import GNConfig, GNProblem
 from occlusionfusion_tpu_torch.solvers.gauss_newton_dense import solve_dense
+from occlusionfusion_tpu_torch.solvers.nicp import NICPConfig, NICPProblem
+from occlusionfusion_tpu_torch.solvers.nicp import solve as nicp_solve
 
 
 class FusionTables(NamedTuple):
@@ -116,6 +123,10 @@ class FusedStepConfig(NamedTuple):
     use_lepard: bool = False
     lepard_max_target_points: int = 2048
     lepard_subsample: str = "topk"
+    # warp solver: "nicp" (Adam over ARAP + landmark + motion costs) or
+    # "gn_dense" (the gn config above)
+    solver: str = "nicp"
+    nicp: NICPConfig = NICPConfig(iters=100)
 
 
 def _rgbxyz_image(depth, color, intr: Intrinsics):
@@ -162,12 +173,16 @@ def fused_register_frame(
     flow_net=None,
     mask_net=None,
     lepard_net=None,
+    corr_depth: torch.Tensor | None = None,  # [H, W]
 ):
     """One frame. Returns (state, info [7] f32: final_loss,
     n_correspondences, n_visible_nodes, mean_conf, solve_valid,
-    n_flow_filled, n_lepard_matches). With ``config.use_flow`` the PWC ``flow_net`` and
-    ``mask_net`` are required and ``state.prev_rgbxyz`` holds the
-    previous frame; with ``config.use_lepard`` the ``lepard_net``."""
+    n_flow_filled, n_lepard_matches). With ``config.use_flow`` the PWC
+    ``flow_net`` and ``mask_net`` are required and ``state.prev_rgbxyz``
+    holds the previous frame; with ``config.use_lepard`` the
+    ``lepard_net``. ``corr_depth``, where given, is the depth the
+    projective association reads (the stepwise loop's, with boundary
+    pixels zeroed); everything else reads ``depth``."""
     warp = W.WarpFieldState(
         node_positions=tables.nodes,
         node_valid=tables.node_valid,
@@ -184,7 +199,8 @@ def fused_register_frame(
 
     # 2. correspondences + visibility
     targets, corr_valid = projective_correspondences(
-        deformed_pts, tables.model_valid & tables.point_valid, depth, intr,
+        deformed_pts, tables.model_valid & tables.point_valid,
+        depth if corr_depth is None else corr_depth, intr,
         max_depth_diff=config.max_depth_diff,
     )
     node_visible, _ = T.check_visibility(
@@ -268,24 +284,46 @@ def fused_register_frame(
         motion_conf = node_observed.to(torch.float32)
 
     # 5. warp solve, warm started at the current transforms
-    problem = GNProblem(
-        source_points=tables.model_points,
-        point_anchors=tables.point_anchors,
-        point_weights=tables.point_weights,
-        target_points=targets,
-        point_valid=corr_weight,
-        nodes=tables.nodes,
-        node_valid=tables.node_valid,
-        edges=tables.edges,
-        edge_weights=tables.edge_weights,
-        motion_targets=motion_targets,
-        motion_confidence=motion_conf,
-        solve_node_mask=tables.node_valid,
-    )
-    result = solve_dense(
-        problem, config.gn, init_rotations=state.rotations,
-        init_translations=state.translations,
-    )
+    if config.solver == "nicp":
+        idx = torch.arange(tables.model_points.shape[0],
+                           device=tables.model_points.device)
+        result = nicp_solve(NICPProblem(
+            source_points=tables.model_points,
+            point_anchors=tables.point_anchors,
+            point_weights=tables.point_weights,
+            point_valid=tables.model_valid & tables.point_valid,
+            nodes=tables.nodes,
+            node_valid=tables.node_valid,
+            edges=tables.edges,
+            edge_weights=tables.edge_weights,
+            target_points=targets,
+            landmark_src=idx,
+            landmark_tgt=idx,
+            landmark_valid=corr_weight,
+            motion_targets=motion_targets,
+            motion_confidence=motion_conf,
+        ), config.nicp, init_rotations=state.rotations,
+            init_translations=state.translations)
+        final_loss = result.final_loss
+        solve_valid = torch.isfinite(final_loss)
+    else:
+        result = solve_dense(GNProblem(
+            source_points=tables.model_points,
+            point_anchors=tables.point_anchors,
+            point_weights=tables.point_weights,
+            target_points=targets,
+            point_valid=corr_weight,
+            nodes=tables.nodes,
+            node_valid=tables.node_valid,
+            edges=tables.edges,
+            edge_weights=tables.edge_weights,
+            motion_targets=motion_targets,
+            motion_confidence=motion_conf,
+            solve_node_mask=tables.node_valid,
+        ), config.gn, init_rotations=state.rotations,
+            init_translations=state.translations)
+        final_loss = result.residual_history[-1]
+        solve_valid = result.valid
 
     # 6. integrate through the updated warp
     new_warp = warp._replace(
@@ -303,13 +341,13 @@ def fused_register_frame(
     )
 
     info = torch.stack([
-        result.residual_history[-1],
+        final_loss,
         torch.sum(corr_valid).to(torch.float32),
         torch.sum(node_visible).to(torch.float32),
         torch.sum(motion_conf) / torch.clamp(
             torch.sum(tables.node_valid), min=1
         ).to(torch.float32),
-        result.valid.to(torch.float32),
+        solve_valid.to(torch.float32),
         torch.sum(flow_ok).to(torch.float32),
         torch.sum(lmask).to(torch.float32),
     ])
@@ -343,28 +381,40 @@ def _copy_state_(dst, src) -> None:
         _copy_state_(d, s)
 
 
-class ChunkGraph:
-    """F fused steps captured back to back in one CUDA graph.
+def graph_steps(config: FusedStepConfig, frames: int) -> int:
+    """Steps one captured graph holds for a chunk of ``frames``: all of
+    them with dense Gauss-Newton, one with N-ICP (its 100 Adam iterations
+    make a step ~32k device ops, which take 1-2 s to capture; the one
+    step's graph is replayed once per frame)."""
+    return 1 if config.solver == "nicp" else frames
 
-    The steps read static device buffers (the F depth and colour frames
-    and the carried state: TSDF, node transforms, motion-runner state,
-    the previous RGB-XYZ image) and each writes its new state back into
-    them with ``copy_`` and its info row into a static [F, 7] buffer, so
-    one replay runs the whole chunk. Before capture one step runs on a
-    side stream, on a clone of the state, which loads the kernel library,
-    makes the bf16 twins of the nets and creates the cuBLAS, cuSOLVER and
-    cuDNN handles and workspaces; the real state does not advance."""
+
+class ChunkGraph:
+    """``steps`` fused steps captured back to back in one CUDA graph.
+
+    The steps read static device buffers (``steps`` depth and colour
+    frames and the carried state: TSDF, node transforms, motion-runner
+    state, the previous RGB-XYZ image) and each writes its new state back
+    into them with ``copy_`` and its info row into a static [steps, 7]
+    buffer. A chunk of F frames is F / ``steps`` replays, each after its
+    frames are copied into the frame buffers in stream order, so the
+    state stays in the graph's buffers from one replay to the next and
+    the host never waits inside a chunk. Before capture one step runs on
+    a side stream, on a clone of the state, which loads the kernel
+    library, makes the bf16 twins of the nets and creates the cuBLAS,
+    cuSOLVER and cuDNN handles and workspaces, and runs autograd once
+    (N-ICP); the real state does not advance."""
 
     def __init__(self, config: FusedStepConfig, state: FusionStepState,
                  tables: FusionTables, nets, depths, colors,
-                 intr: Intrinsics):
+                 intr: Intrinsics, steps: int):
         dev = depths.device
         self.keep = (tables, nets)  # the graph reads their memory
+        self.steps = steps
         self.state = _map_state(torch.clone, state)
-        self.depths = depths.clone()
-        self.colors = colors.clone()
-        n = depths.shape[0]
-        self.infos = torch.zeros((n, 7), dtype=torch.float32, device=dev)
+        self.depths = depths[:steps].clone()
+        self.colors = colors[:steps].clone()
+        self.infos = torch.zeros((steps, 7), dtype=torch.float32, device=dev)
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
@@ -374,28 +424,37 @@ class ChunkGraph:
         torch.cuda.current_stream(dev).wait_stream(stream)
         torch.cuda.synchronize(dev)
         self.graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
         with D.capturing() as counts, torch.cuda.graph(self.graph,
                                                        stream=stream):
-            for j in range(n):
+            for j in range(steps):
                 new, info = fused_register_frame(
                     config, self.state, tables, nets[0], self.depths[j],
                     self.colors[j], intr, *nets[1:],
                 )
                 _copy_state_(self.state, new)
                 self.infos[j].copy_(info)
-        # the kernel launches one replay makes
+        # host seconds of the capture; the kernel launches one replay makes
+        self.capture_s = time.perf_counter() - t0
         self.counts = counts
 
     def replay(self, state, depths, colors):
-        """Run the chunk from ``state``: returns (state, infos [F, 7]),
-        copies the caller keeps (the next replay overwrites the graph's
+        """Run the F frames of ``depths``/``colors`` (a multiple of
+        ``steps``) from ``state``: returns (state, infos [F, 7]), copies
+        the caller keeps (the next call overwrites the graph's
         buffers)."""
+        n = depths.shape[0]
+        if n % self.steps:
+            raise ValueError(f"{n} frames for a graph of {self.steps} steps")
+        infos = torch.empty((n, 7), dtype=torch.float32, device=depths.device)
         _copy_state_(self.state, state)
-        self.depths.copy_(depths)
-        self.colors.copy_(colors)
-        self.graph.replay()
-        D.count_replay(self.counts)
-        return _map_state(torch.clone, self.state), self.infos.clone()
+        for lo in range(0, n, self.steps):
+            self.depths.copy_(depths[lo:lo + self.steps])
+            self.colors.copy_(colors[lo:lo + self.steps])
+            self.graph.replay()
+            D.count_replay(self.counts)
+            infos[lo:lo + self.steps].copy_(self.infos)
+        return _map_state(torch.clone, self.state), infos
 
 
 @torch.no_grad()
@@ -415,11 +474,12 @@ def fused_register_chunk(
 ):
     """F frames in order -> (state, infos [F, 7]), the counterpart of the
     JAX ``lax.scan`` chunk. On CPU tensors the F eager steps; on CUDA
-    tensors one replay of the chunk's CUDA graph, captured at the first
-    call for this step config, F, frame shape, tables and nets and kept
-    in ``graphs``, a dict the caller owns (``DynamicFusion.graphs``).
-    A capture that fails raises: there is no eager fallback on the
-    card."""
+    tensors the chunk's CUDA graph (``graph_steps``: one replay of F
+    captured steps with dense Gauss-Newton, F replays of one captured
+    step with N-ICP), captured at the first call for this step config,
+    step count, frame shape, tables and nets and kept in ``graphs``, a
+    dict the caller owns (``DynamicFusion.graphs``). A capture that
+    fails raises: there is no eager fallback on the card."""
     nets = (motion_net, flow_net, mask_net, lepard_net)
     if not depths.is_cuda:
         infos = []
@@ -430,10 +490,11 @@ def fused_register_chunk(
             )
             infos.append(info)
         return state, torch.stack(infos)
-    key = (config, tuple(depths.shape), tuple(colors.shape), tuple(intr),
-           id(tables), *map(id, nets))
+    steps = graph_steps(config, depths.shape[0])
+    key = (config, steps, tuple(depths.shape[1:]), tuple(colors.shape[1:]),
+           tuple(intr), id(tables), *map(id, nets))
     graph = graphs.get(key)
     if graph is None:
         graph = graphs[key] = ChunkGraph(config, state, tables, nets, depths,
-                                        colors, intr)
+                                        colors, intr, steps)
     return graph.replay(state, depths, colors)

@@ -222,3 +222,77 @@ def _unpack_pyramid(ints: torch.Tensor, level_sizes=LEVEL_SIZES, ks=LEVEL_KS):
         edge_mask=tuple(edge_mask), down_idx=tuple(down), up_idx=tuple(up),
         node_mask=node_mask,
     )
+
+
+def motion_step_packed(net, state: MotionRunnerState, ints: torch.Tensor,
+                       floats: torch.Tensor, level_sizes=LEVEL_SIZES):
+    """motion_step on one packed frame (``pack_frame``'s ints [L] and
+    floats [N0, 7]) -> (new_state, (motion [N0, 3], confidence [N0, 1]))."""
+    pyramid = _unpack_pyramid(ints, level_sizes)
+    return motion_step(net, state, floats[:, :3], floats[:, 3:6],
+                       floats[:, 6] > 0.5, ints[0], pyramid,
+                       n0_cap=level_sizes[0])
+
+
+def motion_scan(net, state: MotionRunnerState, ints: torch.Tensor,
+                floats: torch.Tensor, level_sizes=LEVEL_SIZES):
+    """K packed frames in order (ints [K, L], floats [K, N0, 7]) ->
+    (state, outputs [K, N0, 4]: motion, then confidence)."""
+    outs = []
+    for k in range(ints.shape[0]):
+        state, (motion, conf) = motion_step_packed(net, state, ints[k],
+                                                   floats[k], level_sizes)
+        outs.append(torch.cat([motion, conf], dim=-1))
+    return state, torch.stack(outs)
+
+
+class MotionCompletionRunner:
+    """Host-facing wrapper: packs each frame's numpy inputs, runs the
+    step on the net's device and returns numpy outputs."""
+
+    def __init__(self, net, n0_cap: int = LEVEL_SIZES[0]):
+        self.net = net
+        self.device = next(net.parameters()).device
+        self.n0_cap = n0_cap
+        # the packed layout, the net's shapes and the carried state must
+        # all come from the same node cap
+        self.level_sizes = level_sizes_for(n0_cap)
+        self.state = init_state(n0_cap, self.device)
+
+    def reset(self):
+        self.state = init_state(self.n0_cap, self.device)
+
+    def _packed(self, frames):
+        packed = [pack_frame(f["node_pos"], f["node_motion"], f["visible"],
+                             f["nn_indexes"], f["down_idxs"], f["up_idxs"],
+                             level_sizes=self.level_sizes) for f in frames]
+        ints = np.stack([p[0] for p in packed])
+        floats = np.stack([p[1] for p in packed])
+        return (torch.as_tensor(ints, device=self.device),
+                torch.as_tensor(floats, device=self.device))
+
+    @torch.no_grad()
+    def run_frame(self, node_pos, node_motion, visible, nn_indexes,
+                  down_idxs, up_idxs):
+        """One frame -> (motion [n, 3], confidence [n]) numpy, n the
+        frame's node count."""
+        n = node_pos.shape[0]
+        ints, floats = self._packed([dict(
+            node_pos=node_pos, node_motion=node_motion, visible=visible,
+            nn_indexes=nn_indexes, down_idxs=down_idxs, up_idxs=up_idxs)])
+        self.state, (motion, conf) = motion_step_packed(
+            self.net, self.state, ints[0], floats[0], self.level_sizes)
+        return motion.cpu().numpy()[:n], conf.cpu().numpy()[:n, 0]
+
+    @torch.no_grad()
+    def run_chunk(self, frames: list[dict]):
+        """A list of frames (each a dict of run_frame's arguments) in
+        order, read back once -> a list of (motion [n, 3], confidence
+        [n])."""
+        ints, floats = self._packed(frames)
+        self.state, outs = motion_scan(self.net, self.state, ints, floats,
+                                       self.level_sizes)
+        outs = outs.cpu().numpy()
+        counts = [f["node_pos"].shape[0] for f in frames]
+        return [(outs[i, :c, :3], outs[i, :c, 3])
+                for i, c in enumerate(counts)]

@@ -1,4 +1,4 @@
-"""DynamicFusion orchestrator, fused path (port of
+"""DynamicFusion orchestrator (port of
 ``occlusionfusion_tpu/fusion/pipeline.py``).
 
 ``initialize`` integrates the first frame into a dense or bricked
@@ -6,20 +6,25 @@ volume, extracts the mesh and builds the deformation graph on the host,
 and skins the model points and every voxel (kernel K1 on CUDA).
 ``build_fused`` packs the device-resident tables and state;
 ``register_frame_fused`` runs one eager fused step; ``run_fused`` drives
-a sequence through the chunked engine (``fused_register_chunk``: one
-CUDA graph replay per chunk on the card), reading the per-frame info
-back once per chunk while the next chunk runs. ``get_deformed_mesh``
-returns the canonical mesh warped to the current frame (kernel K1 skins
-its vertices).
+a sequence through the chunked engine (``fused_register_chunk``: CUDA
+graph replays on the card), reading the per-frame info back once per
+chunk while the next chunk runs. ``register_frame`` and ``run`` are the
+stepwise loop: one eager step a frame on the object's own state, with
+depth-boundary pixels left out of the association and the flow lifted
+densely at full resolution, as the JAX stepwise loop does; it reads each
+frame's info back. ``get_deformed_mesh`` returns the canonical mesh
+warped to the current frame (kernel K1 skins its vertices).
 
-Ported: the dense and the bricked volume with ``solver="gn_dense"``,
-projective correspondences, the motion GNN, PWC flow with MaskNet
-weights in fill mode (dense or sparse lift; bf16 nets and a 1/N MaskNet
-with the sparse lift), and the Lepard matcher every frame (topk or
-strided target subsample). Graph growth (and with it brick refresh),
-keyframes and relocalization, the stepwise N-ICP loop, the other flow
-modes, ``flow_downscale``, patchwise NMS, flow without MaskNet and a
-Lepard cadence above 1 raise ``NotImplementedError`` (``UNPORTED``).
+Ported: the dense and the bricked volume with ``solver="nicp"`` (the
+default) or ``"gn_dense"``, projective correspondences, the motion GNN,
+PWC flow with MaskNet weights in fill mode (dense or sparse lift; bf16
+nets and a 1/N MaskNet with the sparse lift), and the Lepard matcher
+every frame (topk or strided target subsample). Graph growth (and with
+it brick refresh), keyframes and relocalization, cluster freezing, the
+other flow modes, ``flow_downscale``, patchwise NMS, flow without
+MaskNet, a Lepard cadence above 1 and the chamfer, silhouette and depth
+costs of N-ICP raise ``NotImplementedError`` (``UNPORTED``,
+``nicp.check_config``).
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from occlusionfusion_tpu_torch.graph.edgraph import (
     build_graph_from_mesh,
 )
 from occlusionfusion_tpu_torch.solvers.gauss_newton import GNConfig
+from occlusionfusion_tpu_torch.solvers.nicp import NICPConfig, check_config
 
 # settings of the JAX FusionConfig that are not ported, each with the
 # one value the port takes (the JAX default)
@@ -78,6 +84,7 @@ class FusionConfig:
     max_points: int = 8192
     max_depth_diff: float = 0.1
     graph: GraphConfig = field(default_factory=GraphConfig)
+    nicp: NICPConfig = field(default_factory=lambda: NICPConfig(iters=100))
     # the weights the JAX package derives for solver="gn_dense" when its
     # gn is None (fusion/fused_step.py:556-561): iters 6, w_point =
     # nicp.w_ldmk, w_arap = nicp.w_arap, w_motion = nicp.w_motion / 100
@@ -85,7 +92,9 @@ class FusionConfig:
     gn: GNConfig = field(default_factory=lambda: GNConfig(
         iters=6, w_point=1.0, w_arap=10.0, w_motion=1.0))
     use_motion_model: bool = True
-    solver: str = "gn_dense"
+    # warp solver: "nicp" (Adam, the nicp config) or "gn_dense" (the gn
+    # config)
+    solver: str = "nicp"
     # 0 = dense grid; > 0 = brick edge in voxels; -1 (the JAX default) =
     # auto: bricks of 8 at >= 128^3 virtual voxels, dense below. Bricks
     # near the first frame's surface (bricks.active_bricks_from_depth)
@@ -118,10 +127,10 @@ class FusionConfig:
 
     def __post_init__(self):
         """The one place that rejects the settings this port lacks."""
-        if self.solver != "gn_dense":
-            raise NotImplementedError(
-                f"solver={self.solver!r} is not ported (gn_dense only)"
-            )
+        if self.solver not in ("nicp", "gn_dense"):
+            raise ValueError(
+                f"solver must be 'nicp' or 'gn_dense', got {self.solver!r}")
+        check_config(self.nicp)
         if self.flow_lift not in ("dense", "sparse"):
             raise ValueError(f"flow_lift must be 'dense' or 'sparse', got "
                              f"{self.flow_lift!r}")
@@ -164,8 +173,12 @@ class DynamicFusion:
         self.mask_net = mask_net
         self.lepard_net = lepard_net
         self.track_lost = False
+        self.frame_id = -1
         # the chunk graphs of run_fused (fused_register_chunk's cache)
         self.graphs = {}
+        # the stepwise loop's (step config, state, tables), made by the
+        # first register_frame after initialize
+        self._stepwise = None
 
     def _t(self, x, dtype=torch.float32):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
@@ -245,6 +258,8 @@ class DynamicFusion:
         # free brick slots stay out of the warp and the integrate
         self.vox_table = table._replace(valid=table.valid & self.brick_valid)
         self.prev_frame = frame
+        self.frame_id = frame.index
+        self._stepwise = None
 
     def _extract_mesh_host(self):
         if self.brick_grid is not None:
@@ -348,6 +363,8 @@ class DynamicFusion:
             use_lepard=cfg.use_lepard,
             lepard_max_target_points=cfg.lepard_max_target_points,
             lepard_subsample=cfg.lepard_subsample,
+            solver=cfg.solver,
+            nicp=cfg.nicp,
         )
         return step_config, state, tables
 
@@ -361,6 +378,46 @@ class DynamicFusion:
             step_config, state, tables, motion_net, self._t(frame.depth),
             self._t(frame.color), self.intr, *self._perception(),
         )
+
+    def register_frame(self, frame: Frame, motion_net=None):
+        """One stepwise frame: the eager fused step on the object's own
+        state, the projective association reading the depth with the
+        frame's boundary pixels zeroed, flow (if on) lifted densely at
+        full resolution. ``motion_net`` is taken at the first frame after
+        ``initialize``. Sets ``track_lost`` below 16 correspondences,
+        ``frame_id`` and ``prev_frame``. Returns the frame's info dict."""
+        if self._stepwise is None:
+            sc, state, tables = self.build_fused(motion_net)
+            # the JAX stepwise loop's flow: dense lift, f32, full res
+            sc = sc._replace(flow_lift="dense", flow_bf16=False,
+                             mask_downscale=1)
+            self._stepwise = (sc, state, tables, motion_net)
+        sc, state, tables, net = self._stepwise
+        depth = self._t(frame.depth)
+        corr_depth = None
+        if frame.boundary is not None:
+            corr_depth = torch.where(self._t(frame.boundary, torch.bool),
+                                     torch.zeros_like(depth), depth)
+        state, info = fused_register_frame(
+            sc, state, tables, net, depth, self._t(frame.color), self.intr,
+            *self._perception(), corr_depth=corr_depth,
+        )
+        self._stepwise = (sc, state, tables, net)
+        self.adopt_fused_state(state)
+        self.frame_id = frame.index
+        self.prev_frame = frame
+        (row,) = self._read_infos([frame.index], (info[None].cpu(), None))
+        return {**row, "n_new_nodes": 0}
+
+    def run(self, start: int = 0, end: int | None = None, skip: int = 1,
+            motion_net=None):
+        """The stepwise loop: frame ``start`` initializes, then each of
+        ``range(start + skip, end, skip)`` goes through ``register_frame``.
+        Returns a list of per-frame info dicts."""
+        end = len(self.seq) if end is None else end
+        self.initialize(self.seq.load(start))
+        return [self.register_frame(self.seq.load(i), motion_net)
+                for i in range(start + skip, end, skip)]
 
     def run_fused(self, start: int = 0, end: int | None = None,
                   skip: int = 1, chunk: int = 16, motion_net=None):

@@ -57,6 +57,7 @@ def config():
         vol_dim=(32, 32, 32), voxel_size=0.01, node_coverage=0.04,
         max_nodes=128, max_points=1024, max_depth_diff=0.05,
         graph=GraphConfig(node_coverage=0.04, min_neighbors=2),
+        solver="gn_dense",
         gn=GNConfig(iters=2, w_point=1.0, w_arap=2.0, w_motion=1.0),
     )
 

@@ -70,7 +70,7 @@ def runs():
         max_points=base.max_points, max_depth_diff=base.max_depth_diff,
         graph=GraphConfig(node_coverage=base.graph.node_coverage,
                           min_neighbors=base.graph.min_neighbors),
-        gn=GNConfig(**GN), use_flow=True,
+        solver="gn_dense", gn=GNConfig(**GN), use_flow=True,
         **BRICKS,
     )
     pwc, mask = load_flow_nets(device="cpu")

@@ -50,7 +50,7 @@ def runs():
         max_points=base.max_points, max_depth_diff=base.max_depth_diff,
         graph=GraphConfig(node_coverage=base.graph.node_coverage,
                           min_neighbors=base.graph.min_neighbors),
-        gn=GNConfig(**GN),
+        solver="gn_dense", gn=GNConfig(**GN),
     )
     seq = ArraySequence(
         seq_j.colors, seq_j.depths,

@@ -109,7 +109,7 @@ def headline_runs(n_frames, perception=HEADLINE_PERCEPTION,
         max_points=base.max_points, max_depth_diff=base.max_depth_diff,
         graph=GraphConfig(node_coverage=base.graph.node_coverage,
                           min_neighbors=base.graph.min_neighbors),
-        gn=GNConfig(**GN), **perception,
+        solver="gn_dense", gn=GNConfig(**GN), **perception,
     )
     pwc, mask = load_flow_nets(device="cpu")
     lep, lcfg = load_lepard_checkpoint(device="cpu")
