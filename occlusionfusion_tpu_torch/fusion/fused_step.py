@@ -19,12 +19,16 @@ graph holds one step and is replayed F times, each frame copied into its
 input buffer in stream order before its replay.
 
 Ported: ``solver="nicp"`` and ``"gn_dense"`` with projective
-correspondences, the motion GNN, flow in fill mode with MaskNet weights
-(dense or sparse lift; the sparse lift with optional bf16 nets and a
-1/N-resolution MaskNet), and the Lepard matcher every frame on a
-deterministic subsample of the target depth; ``FusionConfig``
-(``fusion/pipeline.py``) rejects the settings of the branches not
-ported.
+correspondences, the motion GNN, PWC flow in fill, override or advect
+mode, with MaskNet weights or without MaskNet (dense or sparse lift, the
+nets at 1/N resolution; the sparse lift with optional bf16 nets and a
+1/N-resolution MaskNet; patchwise NMS of the weights, which takes the
+dense lift), and the Lepard matcher on a deterministic subsample of the
+target depth, in the frames the host's cadence gate picks
+(``lepard_every``: the step takes ``run_lepard``, and a chunk graph holds
+the matcher in exactly the steps whose absolute frame index runs it).
+``FusionConfig`` (``fusion/pipeline.py``) rejects the settings of the
+branches not ported.
 """
 
 from __future__ import annotations
@@ -32,12 +36,14 @@ from __future__ import annotations
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from occlusionfusion_tpu_torch.fusion import tsdf as T
 from occlusionfusion_tpu_torch.fusion import warpfield as W
 from occlusionfusion_tpu_torch.fusion.correspondence import (
+    depth_association_at_pixels,
     node_motion_observations,
     projective_correspondences,
 )
@@ -51,6 +57,7 @@ from occlusionfusion_tpu_torch import device as D
 from occlusionfusion_tpu_torch.fusion.flow_correspondence import (
     flow_correspondences,
     flow_targets_at_points,
+    patchwise_max_weights,
     sample_weight_field,
 )
 from occlusionfusion_tpu_torch.geometry.camera import (
@@ -108,20 +115,39 @@ class FusedStepConfig(NamedTuple):
     use_motion_model: bool = True
     # pyramid padding buckets; must equal level_sizes_for(node cap)
     motion_levels: tuple = LEVEL_SIZES
-    # PWC flow + MaskNet correspondences, "fill" mode: flow targets only
-    # for points without a projective target, where the sampled MaskNet
-    # weight exceeds FLOW_MASK_THRESHOLD
+    # PWC flow correspondences, weighted by MaskNet where a mask_net is
+    # given (a flow target then needs a sampled weight above
+    # FLOW_MASK_THRESHOLD), else by their validity
     use_flow: bool = False
+    # "fill": flow targets only for points without a projective target;
+    # "override": flow targets wherever the flow's gate passes;
+    # "advect": each projection advected by the flow, the target the
+    # along-ray depth association at the advected pixel, weighted
+    # flow_advect_weight x the flow's weight, with a fill rescue where
+    # that association fails (pipeline.FusionConfig has the knobs)
+    flow_mode: str = "fill"
+    flow_advect_min_px: float = 0.0
+    flow_advect_weight: float = 1.0
+    flow_advect_mask_threshold: float | None = None
+    flow_advect_alpha: float = 1.0
+    # patchwise non-max suppression of the MaskNet weights in PxP patches
+    # (0 = off); it needs the pixel grid, so it takes the dense lift
+    flow_mask_patch: int = 0
+    # PWC + MaskNet at 1/N resolution
+    flow_downscale: int = 1
     # "dense": lift every pixel, then sample at the model projections;
     # "sparse": lift at the projections only (flow_targets_at_points)
     flow_lift: str = "dense"
     # sparse lift only: PWC + MaskNet in bfloat16, MaskNet at 1/N
     flow_bf16: bool = False
     mask_downscale: int = 1
-    # Lepard scene flow every frame on a deterministic subsample of the
-    # target depth ("topk" or "strided", lepard_max_target_points)
+    # Lepard scene flow on a deterministic subsample of the target depth
+    # ("topk" or "strided", lepard_max_target_points), in the frames whose
+    # absolute index is a multiple of lepard_every (the host's gate,
+    # lepard_gate, passed to the step as run_lepard)
     use_lepard: bool = False
     lepard_max_target_points: int = 2048
+    lepard_every: int = 1
     lepard_subsample: str = "topk"
     # warp solver: "nicp" (Adam over ARAP + landmark + motion costs) or
     # "gn_dense" (the gn config above)
@@ -161,6 +187,100 @@ def _deterministic_target_subsample(depth, intr: Intrinsics, cap: int,
     return pts[order[:cap]], top[:cap] >= 0
 
 
+def _flow_correspondences(config: FusedStepConfig, prev_rgbxyz, cur_rgbxyz,
+                          deformed_pts, assoc_depth, intr: Intrinsics,
+                          flow_net, mask_net, targets, corr_valid,
+                          corr_weight):
+    """PWC prev -> current lifted to 3-D targets at the deformed points'
+    projections, gated by MaskNet's weight (where a mask_net is given) and
+    combined with the projective targets by ``config.flow_mode``. Advect
+    associates ``assoc_depth`` at the advected pixels. Returns (targets,
+    corr_valid, corr_weight, flow_ok [P], the points flow set)."""
+    z = torch.clamp(deformed_pts[:, 2], min=1e-6)
+    u = deformed_pts[:, 0] / z * intr.fx + intr.cx
+    v = deformed_pts[:, 1] / z * intr.fy + intr.cy
+    h_im, w_im = assoc_depth.shape
+    inb = (u >= 0) & (u <= w_im - 1) & (v >= 0) & (v <= h_im - 1)
+    front = deformed_pts[:, 2] > 0
+    uv = torch.stack([u, v], dim=-1)
+    advect = config.flow_mode == "advect"
+    wsamp = uv2 = None
+    # patchwise NMS needs the pixel grid: it takes the dense lift
+    if config.flow_lift == "sparse" and not config.flow_mask_patch:
+        lifted = flow_targets_at_points(
+            flow_net, prev_rgbxyz, cur_rgbxyz, uv, mask_net,
+            bf16=config.flow_bf16, mask_downscale=config.mask_downscale,
+            downscale=config.flow_downscale, return_uv2=advect,
+        )
+        sampled, pvalid, wsamp = lifted[:3]
+        uv2 = lifted[3] if advect else None
+        ok = inb & pvalid & front
+    else:
+        flow_full, flow_targets, flow_valid, flow_weights = (
+            flow_correspondences(flow_net, prev_rgbxyz, cur_rgbxyz, mask_net,
+                                 downscale=config.flow_downscale)
+        )
+        if advect:
+            uv2 = uv + bilinear_sample(flow_full, uv)
+        nms = mask_net is not None and config.flow_mask_patch > 0
+        if nms:
+            flow_weights = patchwise_max_weights(flow_weights,
+                                                 config.flow_mask_patch)
+        sampled = bilinear_sample(flow_targets, uv)
+        vsamp = bilinear_sample(
+            flow_valid[..., None].to(torch.float32), uv
+        )[:, 0]
+        ok = inb & (vsamp > 0.5) & front
+        if mask_net is not None:
+            wsamp = sample_weight_field(flow_weights, u, v, nms)
+    if mask_net is not None:
+        ok = ok & (wsamp > FLOW_MASK_THRESHOLD)
+        w_flow = torch.clamp(wsamp, 0.0, 1.0)
+    else:
+        w_flow = torch.ones_like(u)
+    if advect:
+        # the flow's tangential step with the along-ray depth at the
+        # advected pixel; the lifted target rescues points where that
+        # association fails and no projective target exists
+        adv_t, adv_dvalid = depth_association_at_pixels(
+            uv2[:, 0], uv2[:, 1], deformed_pts[:, 2], assoc_depth, intr,
+            config.max_depth_diff,
+        )
+        gate = inb & front
+        if mask_net is not None:
+            thr = config.flow_advect_mask_threshold
+            gate = gate & (wsamp > (FLOW_MASK_THRESHOLD if thr is None
+                                    else thr))
+        if config.flow_advect_min_px > 0.0:
+            gate = gate & (torch.linalg.vector_norm(uv2 - uv, dim=-1)
+                           >= config.flow_advect_min_px)
+        adv_ok = gate & adv_dvalid
+        if config.flow_advect_alpha < 1.0:
+            # alpha and 1 - alpha rounded in f32, as the JAX package does
+            a = np.float32(config.flow_advect_alpha)
+            adv_t = torch.where(corr_valid[:, None],
+                                float(a) * adv_t + float(1 - a) * targets,
+                                adv_t)
+        fill_ok = ok & ~adv_ok & ~corr_valid
+        targets = torch.where(
+            adv_ok[:, None], adv_t,
+            torch.where(fill_ok[:, None], sampled, targets),
+        )
+        corr_weight = torch.where(
+            adv_ok, w_flow * config.flow_advect_weight, corr_weight)
+        corr_weight = torch.where(fill_ok, w_flow, corr_weight)
+        ok = adv_ok | fill_ok
+    else:
+        if config.flow_mode == "fill":
+            ok = ok & ~corr_valid
+        if mask_net is not None:
+            corr_weight = torch.where(ok, w_flow, corr_weight)
+        else:
+            corr_weight = torch.maximum(corr_weight, ok.to(torch.float32))
+        targets = torch.where(ok[:, None], sampled, targets)
+    return targets, corr_valid | ok, corr_weight, ok
+
+
 @torch.no_grad()
 def fused_register_frame(
     config: FusedStepConfig,
@@ -174,15 +294,19 @@ def fused_register_frame(
     mask_net=None,
     lepard_net=None,
     corr_depth: torch.Tensor | None = None,  # [H, W]
+    run_lepard: bool = True,
 ):
     """One frame. Returns (state, info [7] f32: final_loss,
     n_correspondences, n_visible_nodes, mean_conf, solve_valid,
     n_flow_filled, n_lepard_matches). With ``config.use_flow`` the PWC
-    ``flow_net`` and ``mask_net`` are required and ``state.prev_rgbxyz``
-    holds the previous frame; with ``config.use_lepard`` the
-    ``lepard_net``. ``corr_depth``, where given, is the depth the
-    projective association reads (the stepwise loop's, with boundary
-    pixels zeroed); everything else reads ``depth``."""
+    ``flow_net`` is required (``mask_net`` optional) and
+    ``state.prev_rgbxyz`` holds the previous frame; with
+    ``config.use_lepard`` the ``lepard_net``, which runs where the host's
+    ``run_lepard`` says (the cadence gate on the absolute frame index; a
+    skipped frame launches none of the matcher's ops and counts 0
+    matches). ``corr_depth``, where given, is the depth the projective
+    association and advect's association read (the stepwise loop's, with
+    boundary pixels zeroed); everything else reads ``depth``."""
     warp = W.WarpFieldState(
         node_positions=tables.nodes,
         node_valid=tables.node_valid,
@@ -192,6 +316,7 @@ def fused_register_frame(
     point_table = W.SkinTable(
         tables.point_anchors, tables.point_weights, tables.point_valid
     )
+    assoc_depth = depth if corr_depth is None else corr_depth
 
     # 1. deform model + nodes
     deformed_pts = W.deform_points(warp, tables.model_points, point_table)
@@ -199,9 +324,8 @@ def fused_register_frame(
 
     # 2. correspondences + visibility
     targets, corr_valid = projective_correspondences(
-        deformed_pts, tables.model_valid & tables.point_valid,
-        depth if corr_depth is None else corr_depth, intr,
-        max_depth_diff=config.max_depth_diff,
+        deformed_pts, tables.model_valid & tables.point_valid, assoc_depth,
+        intr, max_depth_diff=config.max_depth_diff,
     )
     node_visible, _ = T.check_visibility(
         deformed_nodes, depth, intr, config.tsdf.trunc_margin
@@ -209,47 +333,20 @@ def fused_register_frame(
     node_visible = node_visible & tables.node_valid
     corr_weight = corr_valid.to(torch.float32)
 
-    # 2b. flow correspondences: PWC prev -> current lifted to 3-D
-    # targets at the deformed points' projections, MaskNet-gated and
-    # -weighted; they fill only points without a projective target
+    # 2b. flow correspondences (fill, override or advect)
     cur_rgbxyz = state.prev_rgbxyz
     flow_ok = torch.zeros_like(corr_valid)
     if config.use_flow:
         cur_rgbxyz = _rgbxyz_image(depth, color, intr)
-        z = torch.clamp(deformed_pts[:, 2], min=1e-6)
-        u = deformed_pts[:, 0] / z * intr.fx + intr.cx
-        v = deformed_pts[:, 1] / z * intr.fy + intr.cy
-        h_im, w_im = depth.shape
-        inb = (u >= 0) & (u <= w_im - 1) & (v >= 0) & (v <= h_im - 1)
-        uv = torch.stack([u, v], dim=-1)
-        if config.flow_lift == "sparse":
-            sampled, pvalid, wsamp = flow_targets_at_points(
-                flow_net, state.prev_rgbxyz, cur_rgbxyz, uv, mask_net,
-                bf16=config.flow_bf16, mask_downscale=config.mask_downscale,
-            )
-            flow_ok = inb & pvalid & (deformed_pts[:, 2] > 0)
-        else:
-            _, flow_targets, flow_valid, flow_weights = (
-                flow_correspondences(flow_net, state.prev_rgbxyz,
-                                     cur_rgbxyz, mask_net)
-            )
-            sampled = bilinear_sample(flow_targets, uv)
-            vsamp = bilinear_sample(
-                flow_valid[..., None].to(torch.float32), uv
-            )[:, 0]
-            wsamp = sample_weight_field(flow_weights, u, v)
-            flow_ok = inb & (vsamp > 0.5) & (deformed_pts[:, 2] > 0)
-        flow_ok = flow_ok & (wsamp > FLOW_MASK_THRESHOLD) & ~corr_valid
-        corr_weight = torch.where(
-            flow_ok, torch.clamp(wsamp, 0.0, 1.0), corr_weight
+        targets, corr_valid, corr_weight, flow_ok = _flow_correspondences(
+            config, state.prev_rgbxyz, cur_rgbxyz, deformed_pts, assoc_depth,
+            intr, flow_net, mask_net, targets, corr_valid, corr_weight,
         )
-        targets = torch.where(flow_ok[:, None], sampled, targets)
-        corr_valid = corr_valid | flow_ok
 
     # 2c. Lepard scene flow on a deterministic subsample of the target
     # depth: matcher targets replace the others where the blend holds
     lmask = torch.zeros_like(corr_valid)
-    if config.use_lepard:
+    if config.use_lepard and run_lepard:
         tgt_pcd, tgt_valid = _deterministic_target_subsample(
             depth, intr, config.lepard_max_target_points,
             config.lepard_subsample,
@@ -396,21 +493,25 @@ class ChunkGraph:
     frames and the carried state: TSDF, node transforms, motion-runner
     state, the previous RGB-XYZ image) and each writes its new state back
     into them with ``copy_`` and its info row into a static [steps, 7]
-    buffer. A chunk of F frames is F / ``steps`` replays, each after its
-    frames are copied into the frame buffers in stream order, so the
-    state stays in the graph's buffers from one replay to the next and
-    the host never waits inside a chunk. Before capture one step runs on
-    a side stream, on a clone of the state, which loads the kernel
-    library, makes the bf16 twins of the nets and creates the cuBLAS,
-    cuSOLVER and cuDNN handles and workspaces, and runs autograd once
-    (N-ICP); the real state does not advance."""
+    buffer. Step j runs the Lepard matcher iff ``lepard_on[j]`` (the
+    cadence gate of its frame, fixed at capture: a graph per pattern). A
+    run of F frames is F / ``steps`` replays, each after its frames are
+    copied into the frame buffers in stream order, so the state stays in
+    the graph's buffers from one replay to the next and the host never
+    waits inside it. Before capture one step runs on a side stream, on a
+    clone of the state (one for each gate value of the pattern, the first
+    step's first), which loads the kernel library, makes the bf16 twins
+    of the nets and creates the cuBLAS, cuSOLVER and cuDNN handles and
+    workspaces, and runs autograd once (N-ICP); the real state does not
+    advance."""
 
     def __init__(self, config: FusedStepConfig, state: FusionStepState,
                  tables: FusionTables, nets, depths, colors,
-                 intr: Intrinsics, steps: int):
+                 intr: Intrinsics, steps: int, lepard_on: tuple):
         dev = depths.device
         self.keep = (tables, nets)  # the graph reads their memory
         self.steps = steps
+        self.lepard_on = lepard_on
         self.state = _map_state(torch.clone, state)
         self.depths = depths[:steps].clone()
         self.colors = colors[:steps].clone()
@@ -418,9 +519,13 @@ class ChunkGraph:
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
-            fused_register_frame(config, _map_state(torch.clone, state),
-                                 tables, nets[0], self.depths[0],
-                                 self.colors[0], intr, *nets[1:])
+            # one warm-up step per gate value the capture holds, the first
+            # step's own first
+            for on in dict.fromkeys(lepard_on):
+                fused_register_frame(config, _map_state(torch.clone, state),
+                                     tables, nets[0], self.depths[0],
+                                     self.colors[0], intr, *nets[1:],
+                                     run_lepard=on)
         torch.cuda.current_stream(dev).wait_stream(stream)
         torch.cuda.synchronize(dev)
         self.graph = torch.cuda.CUDAGraph()
@@ -431,6 +536,7 @@ class ChunkGraph:
                 new, info = fused_register_frame(
                     config, self.state, tables, nets[0], self.depths[j],
                     self.colors[j], intr, *nets[1:],
+                    run_lepard=lepard_on[j],
                 )
                 _copy_state_(self.state, new)
                 self.infos[j].copy_(info)
@@ -457,6 +563,15 @@ class ChunkGraph:
         return _map_state(torch.clone, self.state), infos
 
 
+def lepard_gate(config: FusedStepConfig, frame_ids) -> tuple:
+    """The Lepard cadence gate of each frame: True where the matcher runs
+    (``config.use_lepard`` and the absolute frame index a multiple of
+    ``config.lepard_every``, as the JAX stepwise loop's
+    ``frame.index % lepard_every``)."""
+    return tuple(bool(config.use_lepard) and i % config.lepard_every == 0
+                 for i in frame_ids)
+
+
 @torch.no_grad()
 def fused_register_chunk(
     config: FusedStepConfig,
@@ -471,30 +586,53 @@ def fused_register_chunk(
     lepard_net=None,
     *,
     graphs: dict,
+    lepard_on=None,
 ):
     """F frames in order -> (state, infos [F, 7]), the counterpart of the
-    JAX ``lax.scan`` chunk. On CPU tensors the F eager steps; on CUDA
-    tensors the chunk's CUDA graph (``graph_steps``: one replay of F
-    captured steps with dense Gauss-Newton, F replays of one captured
-    step with N-ICP), captured at the first call for this step config,
-    step count, frame shape, tables and nets and kept in ``graphs``, a
-    dict the caller owns (``DynamicFusion.graphs``). A capture that
-    fails raises: there is no eager fallback on the card."""
+    JAX ``lax.scan`` chunk. ``lepard_on`` [F] says in which frames the
+    matcher runs (``lepard_gate``; None: in every frame where
+    ``config.use_lepard``). On CPU tensors the F eager steps; on CUDA
+    tensors CUDA graph replays (``graph_steps``: one replay of F captured
+    steps with dense Gauss-Newton, F replays of one captured step with
+    N-ICP), a graph for each pattern of the gate over its steps, captured
+    at the first call for this step config, step count, frame shape,
+    tables, nets and pattern and kept in ``graphs``, a dict the caller
+    owns (``DynamicFusion.graphs``). Consecutive blocks of steps with one
+    pattern replay one graph. A capture that fails raises: there is no
+    eager fallback on the card."""
     nets = (motion_net, flow_net, mask_net, lepard_net)
+    n = depths.shape[0]
+    if lepard_on is None:
+        lepard_on = (bool(config.use_lepard),) * n
+    lepard_on = tuple(bool(x) and config.use_lepard for x in lepard_on)
+    if len(lepard_on) != n:
+        raise ValueError(f"{len(lepard_on)} gate entries for {n} frames")
     if not depths.is_cuda:
         infos = []
-        for j in range(depths.shape[0]):
+        for j in range(n):
             state, info = fused_register_frame(
                 config, state, tables, motion_net, depths[j], colors[j],
                 intr, flow_net, mask_net, lepard_net,
+                run_lepard=lepard_on[j],
             )
             infos.append(info)
         return state, torch.stack(infos)
-    steps = graph_steps(config, depths.shape[0])
-    key = (config, steps, tuple(depths.shape[1:]), tuple(colors.shape[1:]),
-           tuple(intr), id(tables), *map(id, nets))
-    graph = graphs.get(key)
-    if graph is None:
-        graph = graphs[key] = ChunkGraph(config, state, tables, nets, depths,
-                                        colors, intr, steps)
-    return graph.replay(state, depths, colors)
+    steps = graph_steps(config, n)
+    base = (config, steps, tuple(depths.shape[1:]), tuple(colors.shape[1:]),
+            tuple(intr), id(tables), *map(id, nets))
+    outs, lo = [], 0
+    while lo < n:
+        pattern = lepard_on[lo:lo + steps]
+        hi = lo + steps
+        while hi < n and lepard_on[hi:hi + steps] == pattern:
+            hi += steps
+        key = base + (pattern,)
+        graph = graphs.get(key)
+        if graph is None:
+            graph = graphs[key] = ChunkGraph(
+                config, state, tables, nets, depths[lo:hi], colors[lo:hi],
+                intr, steps, pattern)
+        state, out = graph.replay(state, depths[lo:hi], colors[lo:hi])
+        outs.append(out)
+        lo = hi
+    return state, torch.cat(outs)

@@ -17,12 +17,13 @@ warped to the current frame (kernel K1 skins its vertices).
 
 Ported: the dense and the bricked volume with ``solver="nicp"`` (the
 default) or ``"gn_dense"``, projective correspondences, the motion GNN,
-PWC flow with MaskNet weights in fill mode (dense or sparse lift; bf16
-nets and a 1/N MaskNet with the sparse lift), and the Lepard matcher
-every frame (topk or strided target subsample). Graph growth (and with
-it brick refresh), keyframes and relocalization, cluster freezing, the
-other flow modes, ``flow_downscale``, patchwise NMS, flow without
-MaskNet, a Lepard cadence above 1 and the chamfer, silhouette and depth
+PWC flow in fill, override or advect mode, with MaskNet weights or
+without MaskNet (dense or sparse lift, PWC at 1/N resolution; bf16 nets
+and a 1/N MaskNet with the sparse lift; patchwise NMS of the weights,
+which takes the dense lift), and the Lepard matcher (topk or strided
+target subsample) every ``lepard_every``-th absolute frame in both
+engines. Graph growth (and with it brick refresh), keyframes and
+relocalization, cluster freezing and the chamfer, silhouette and depth
 costs of N-ICP raise ``NotImplementedError`` (``UNPORTED``,
 ``nicp.check_config``).
 """
@@ -45,6 +46,7 @@ from occlusionfusion_tpu_torch.fusion.fused_step import (
     _rgbxyz_image,
     fused_register_chunk,
     fused_register_frame,
+    lepard_gate,
 )
 from occlusionfusion_tpu_torch.fusion.frame_loader import Frame
 from occlusionfusion_tpu_torch.fusion.motion_runner import (
@@ -67,10 +69,6 @@ UNPORTED = {
     "growth_interval": 0,
     "keyframe_interval": 0,
     "min_cluster_matches": 0.0,
-    "flow_mode": "fill",
-    "flow_downscale": 1,
-    "flow_mask_patch": 0,
-    "lepard_every": 1,
 }
 
 
@@ -101,10 +99,32 @@ class FusionConfig:
     # are allocated in max_bricks static slots.
     brick_size: int = -1
     max_bricks: int = 2048
-    # PWC flow + MaskNet correspondences (flow_net and mask_net given to
-    # DynamicFusion) fill points without a projective target whose
-    # sampled MaskNet weight exceeds 0.35 (the JAX default)
+    # PWC flow correspondences (flow_net given to DynamicFusion), with
+    # MaskNet weights where a mask_net is given (a flow target then needs
+    # a sampled weight above 0.35, the JAX default flow_mask_threshold)
+    # and weight 1 where the flow is valid without one
     use_flow: bool = False
+    # how flow combines with projective association: "fill" (flow only
+    # for points without a projective target), "override" (flow wherever
+    # its gate passes, the reference's behaviour) or "advect" (each
+    # projection advected by the flow, the target the along-ray depth
+    # association at the advected pixel; the lifted target rescues points
+    # where that fails and no projective target exists)
+    flow_mode: str = "fill"
+    # advect only: the least flow (px) that advects (0 = any); the
+    # solver weight of an advected target (x its MaskNet weight); the
+    # MaskNet threshold of an advected target (None = 0.35, a fill's);
+    # target = alpha * advected + (1 - alpha) * projective where both hold
+    flow_advect_min_px: float = 0.0
+    flow_advect_weight: float = 1.0
+    flow_advect_mask_threshold: float | None = None
+    flow_advect_alpha: float = 1.0
+    # PWC + MaskNet at 1/N resolution (the lift stays at full resolution)
+    flow_downscale: int = 1
+    # patchwise non-max suppression of the MaskNet weights in PxP patches
+    # (0 = off), sampled at the nearest pixel; it needs the pixel grid, so
+    # the fused engine then lifts densely in f32 whatever flow_lift says
+    flow_mask_patch: int = 0
     # "dense" lifts every pixel and samples at the model projections;
     # "sparse" lifts at the projections only
     flow_lift: str = "dense"
@@ -112,18 +132,18 @@ class FusionConfig:
     flow_bf16: bool = False
     mask_downscale: int = 1
     # Lepard scene flow (lepard_net given to DynamicFusion) on a
-    # deterministic "topk" or "strided" subsample of the target depth
+    # deterministic "topk" or "strided" subsample of the target depth, in
+    # the frames whose absolute index is a multiple of lepard_every (both
+    # engines; the chunked engine holds the matcher in exactly those
+    # steps of its graphs)
     use_lepard: bool = False
     lepard_max_target_points: int = 4096
+    lepard_every: int = 1
     lepard_subsample: str = "topk"
     # not ported: each must keep its value in UNPORTED
     growth_interval: int = 0
     keyframe_interval: int = 0
     min_cluster_matches: float = 0.0
-    flow_mode: str = "fill"
-    flow_downscale: int = 1
-    flow_mask_patch: int = 0
-    lepard_every: int = 1
 
     def __post_init__(self):
         """The one place that rejects the settings this port lacks."""
@@ -131,6 +151,12 @@ class FusionConfig:
             raise ValueError(
                 f"solver must be 'nicp' or 'gn_dense', got {self.solver!r}")
         check_config(self.nicp)
+        if self.flow_mode not in ("fill", "override", "advect"):
+            raise ValueError(f"flow_mode must be 'fill', 'override' or "
+                             f"'advect', got {self.flow_mode!r}")
+        if self.flow_downscale < 1 or self.flow_mask_patch < 0:
+            raise ValueError("flow_downscale must be >= 1 and "
+                             "flow_mask_patch >= 0")
         if self.flow_lift not in ("dense", "sparse"):
             raise ValueError(f"flow_lift must be 'dense' or 'sparse', got "
                              f"{self.flow_lift!r}")
@@ -154,8 +180,9 @@ class DynamicFusion:
     def __init__(self, sequence, config: FusionConfig, device=None,
                  flow_net=None, mask_net=None, lepard_net=None):
         """``flow_net``/``mask_net``: PWC-Net and MaskNet
-        (``models.checkpoint.load_flow_nets``), required by
-        ``config.use_flow``; ``lepard_net``: the matcher
+        (``models.checkpoint.load_flow_nets``); ``config.use_flow``
+        requires the PWC-Net, and without a MaskNet the flow's weights
+        are its validity; ``lepard_net``: the matcher
         (``models.checkpoint.load_lepard_checkpoint``), required by
         ``config.use_lepard``."""
         self.seq = sequence
@@ -163,10 +190,7 @@ class DynamicFusion:
         self.intr = sequence.intrinsics
         self.device = resolve_device(device)
         if config.use_flow and flow_net is None:
-            raise ValueError("use_flow requires flow_net and mask_net")
-        if config.use_flow and mask_net is None:
-            raise NotImplementedError(
-                "flow without MaskNet (mask_net=None) is not ported")
+            raise ValueError("use_flow requires flow_net")
         if config.use_lepard and lepard_net is None:
             raise ValueError("use_lepard requires lepard_net")
         self.flow_net = flow_net
@@ -357,11 +381,19 @@ class DynamicFusion:
             use_motion_model=use_motion,
             motion_levels=motion_levels,
             use_flow=cfg.use_flow,
+            flow_mode=cfg.flow_mode,
+            flow_advect_min_px=cfg.flow_advect_min_px,
+            flow_advect_weight=cfg.flow_advect_weight,
+            flow_advect_mask_threshold=cfg.flow_advect_mask_threshold,
+            flow_advect_alpha=cfg.flow_advect_alpha,
+            flow_mask_patch=cfg.flow_mask_patch,
+            flow_downscale=cfg.flow_downscale,
             flow_lift=cfg.flow_lift,
             flow_bf16=cfg.flow_bf16,
             mask_downscale=cfg.mask_downscale,
             use_lepard=cfg.use_lepard,
             lepard_max_target_points=cfg.lepard_max_target_points,
+            lepard_every=cfg.lepard_every,
             lepard_subsample=cfg.lepard_subsample,
             solver=cfg.solver,
             nicp=cfg.nicp,
@@ -373,22 +405,27 @@ class DynamicFusion:
 
     def register_frame_fused(self, step_config, state, tables, frame: Frame,
                              motion_net=None):
-        """One eager fused step; the caller owns the state."""
+        """One eager fused step; the caller owns the state. The Lepard
+        gate reads ``frame.index``, so it fires on the same absolute
+        frames whatever state or tables the caller passes."""
         return fused_register_frame(
             step_config, state, tables, motion_net, self._t(frame.depth),
             self._t(frame.color), self.intr, *self._perception(),
+            run_lepard=lepard_gate(step_config, [frame.index])[0],
         )
 
     def register_frame(self, frame: Frame, motion_net=None):
         """One stepwise frame: the eager fused step on the object's own
-        state, the projective association reading the depth with the
-        frame's boundary pixels zeroed, flow (if on) lifted densely at
-        full resolution. ``motion_net`` is taken at the first frame after
-        ``initialize``. Sets ``track_lost`` below 16 correspondences,
-        ``frame_id`` and ``prev_frame``. Returns the frame's info dict."""
+        state, the projective association (and advect's) reading the
+        depth with the frame's boundary pixels zeroed, flow (if on) lifted
+        densely in f32 with PWC at 1/``flow_downscale``, Lepard (if on) in
+        the frames whose index is a multiple of ``lepard_every``.
+        ``motion_net`` is taken at the first frame after ``initialize``.
+        Sets ``track_lost`` below 16 correspondences, ``frame_id`` and
+        ``prev_frame``. Returns the frame's info dict."""
         if self._stepwise is None:
             sc, state, tables = self.build_fused(motion_net)
-            # the JAX stepwise loop's flow: dense lift, f32, full res
+            # the JAX stepwise loop's flow: the dense lift in f32
             sc = sc._replace(flow_lift="dense", flow_bf16=False,
                              mask_downscale=1)
             self._stepwise = (sc, state, tables, motion_net)
@@ -401,6 +438,7 @@ class DynamicFusion:
         state, info = fused_register_frame(
             sc, state, tables, net, depth, self._t(frame.color), self.intr,
             *self._perception(), corr_depth=corr_depth,
+            run_lepard=lepard_gate(sc, [frame.index])[0],
         )
         self._stepwise = (sc, state, tables, net)
         self.adopt_fused_state(state)
@@ -442,6 +480,7 @@ class DynamicFusion:
             state, out = fused_register_chunk(
                 sc, state, tables, motion_net, depths, colors, self.intr,
                 *self._perception(), graphs=self.graphs,
+                lepard_on=lepard_gate(sc, chunk_ids),
             )
             pending.append((chunk_ids, stager.download(out)))
             if len(pending) > 1:

@@ -7,7 +7,10 @@ built on the device at static sizes, and the KPConv layer is a gather
 and one contraction over (neighbours x kernel points x channels). The
 k-NN of the neighbourhoods and the upsampling is ``ops/knn.knn_torch``,
 the port of the XLA ``knn_lax`` the JAX package calls here: the TPU
-kernel K1 (``knn``) takes k = 4 only and stays with the skinning.
+kernel K1 (``knn``) takes k = 4 only and stays with the skinning. The
+pyramid functions take a leading batch axis (one pyramid per cloud, the
+PyTorch form of JAX's ``vmap``), and ``merge_batch`` lays such a pyramid
+out as one cloud for one encoder pass (Lepard's ``batched_encode``).
 
 ``grid_subsample`` hashes with uint32 wraparound as JAX does (int64
 arithmetic masked to 32 bits), orders by a stable sort, and sums each
@@ -48,41 +51,50 @@ def kernel_points(num_points: int = 15, radius: float = 1.0,
 
 
 def grid_subsample(points, valid, voxel: float, max_out: int):
-    """Barycentre voxel subsampling -> (centres [max_out, 3], valid
-    [max_out]), voxels ranked by their hash."""
-    P = points.shape[0]
-    coords = torch.floor(points / voxel).to(torch.int32).long() & _U32
-    h = (((coords[:, 0] * 73856093) & _U32)
-         ^ ((coords[:, 1] * 19349669) & _U32)
-         ^ ((coords[:, 2] * 83492791) & _U32))
-    h = torch.where(valid, h, torch.full_like(h, _U32))  # invalid: one bucket
-    order = torch.argsort(h, stable=True)
-    hs = h[order]
-    first = torch.cat([torch.ones(1, dtype=torch.bool, device=h.device),
-                       hs[1:] != hs[:-1]])
-    seg = torch.cumsum(first.long(), 0) - 1
-    npts = points[order]
-    nvalid = valid[order]
+    """Barycentre voxel subsampling -> (centres [..., max_out, 3], valid
+    [..., max_out]), voxels ranked by their hash; leading axes are a batch
+    of clouds, each subsampled alone."""
+    lead, P = points.shape[:-2], points.shape[-2]
+    pts = points.reshape(-1, P, 3)
+    vld = valid.reshape(-1, P)
+    B = pts.shape[0]
+    coords = torch.floor(pts / voxel).to(torch.int32).long() & _U32
+    h = (((coords[..., 0] * 73856093) & _U32)
+         ^ ((coords[..., 1] * 19349669) & _U32)
+         ^ ((coords[..., 2] * 83492791) & _U32))
+    h = torch.where(vld, h, torch.full_like(h, _U32))  # invalid: one bucket
+    order = torch.argsort(h, dim=-1, stable=True)
+    hs = torch.gather(h, 1, order)
+    first = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=h.device),
+                       hs[:, 1:] != hs[:, :-1]], dim=1)
     n_seg = max(P, max_out)
-    sums = torch.zeros((n_seg, 3), dtype=points.dtype, device=points.device)
-    sums.index_add_(0, seg, torch.where(nvalid[:, None], npts,
-                                        torch.zeros_like(npts)))
-    counts = torch.zeros(n_seg, dtype=points.dtype, device=points.device)
-    counts.index_add_(0, seg, nvalid.to(points.dtype))
-    centers = sums / torch.clamp(counts[:, None], min=1.0)
-    return centers[:max_out], (counts > 0)[:max_out]
+    # each cloud's voxels in a block of n_seg segments of its own
+    seg = (torch.cumsum(first.long(), 1) - 1
+           + torch.arange(B, device=h.device)[:, None] * n_seg).reshape(-1)
+    npts = torch.gather(pts, 1, order[..., None].expand(-1, -1, 3))
+    nvalid = torch.gather(vld, 1, order)
+    sums = torch.zeros((B * n_seg, 3), dtype=points.dtype,
+                       device=points.device)
+    sums.index_add_(0, seg, torch.where(nvalid[..., None], npts,
+                                        torch.zeros_like(npts)).reshape(-1, 3))
+    counts = torch.zeros(B * n_seg, dtype=points.dtype, device=points.device)
+    counts.index_add_(0, seg, nvalid.reshape(-1).to(points.dtype))
+    centers = (sums / torch.clamp(counts[:, None], min=1.0)).reshape(
+        B, n_seg, 3)[:, :max_out]
+    ok = (counts > 0).reshape(B, n_seg)[:, :max_out]
+    return centers.reshape(lead + (max_out, 3)), ok.reshape(lead + (max_out,))
 
 
 def build_neighbors(queries, q_valid, supports, s_valid, radius: float,
                     max_k: int):
-    """[Q, max_k] int64 indices into supports within ``radius``; the
-    shadow index len(supports) fills the rest."""
-    S = supports.shape[0]
+    """[..., Q, max_k] int64 indices into supports [..., S, 3] within
+    ``radius``; the shadow index S fills the rest."""
+    S = supports.shape[-2]
     d2, idx = knn_torch(queries, supports, min(max_k, S), s_valid)
-    ok = (d2 <= radius * radius) & q_valid[:, None]
+    ok = (d2 <= radius * radius) & q_valid[..., None]
     out = torch.where(ok, idx.long(), torch.full_like(idx, S, dtype=torch.long))
-    if out.shape[1] < max_k:
-        out = F.pad(out, (0, max_k - out.shape[1]), value=S)
+    if out.shape[-1] < max_k:
+        out = F.pad(out, (0, max_k - out.shape[-1]), value=S)
     return out
 
 
@@ -118,7 +130,9 @@ class PyramidConfig(NamedTuple):
 
 
 def build_pyramid(points, valid, config: PyramidConfig):
-    """Level 0 by ``grid_subsample`` at ``first_voxel``, then the rest."""
+    """Level 0 by ``grid_subsample`` at ``first_voxel``, then the rest.
+    Leading axes of ``points`` [..., P, 3] are a batch of clouds, each
+    with its own pyramid (``merge_batch`` makes one cloud of them)."""
     pts, vld = grid_subsample(points, valid, config.first_voxel,
                               config.level_sizes[0])
     return build_pyramid_from_level0(pts, vld, config)
@@ -140,7 +154,7 @@ def build_pyramid_from_level0(pts, vld, config: PyramidConfig):
             pts2, vld2 = grid_subsample(pts, vld, voxel2,
                                         config.level_sizes[l + 1])
             pool = build_neighbors(pts2, vld2, pts, vld, radius, nmax)
-            up = knn_torch(pts, pts2, 1, vld2)[1][:, 0].long()
+            up = knn_torch(pts, pts2, 1, vld2)[1][..., 0].long()
             levels.append(PyramidLevel(pts, vld, nb, pool, up))
             pts, vld, voxel = pts2, vld2, voxel2
         else:
@@ -148,15 +162,48 @@ def build_pyramid_from_level0(pts, vld, config: PyramidConfig):
     return levels
 
 
-def _group_norm(x, valid, groups: int = 8, eps: float = 1e-5):
-    """Group norm over the valid points (8 groups, no affine)."""
+def merge_batch(levels):
+    """A pyramid of B clouds (``build_pyramid`` on [B, P, 3]) as one cloud
+    of their points, cloud after cloud at every level: each cloud's
+    neighbour, pooling and upsampling indices offset by its first point
+    there, its shadow indices moved to the merged level's shadow. The
+    encoder then runs once over both (``kpfcn_encode(..., batch=B)``)."""
+    out = []
+    for l, lv in enumerate(levels):
+        B, P = lv.points.shape[:2]
+        dev = lv.points.device
+        b = torch.arange(B, device=dev)
+
+        def merged(idx, n):
+            # indices [B, Q, k] into a level of n points a cloud, shadow n
+            return torch.where(idx == n, B * n,
+                               idx + (b * n)[:, None, None]).reshape(
+                                   -1, idx.shape[-1])
+
+        pool = up = None
+        if lv.pool is not None:
+            pool = merged(lv.pool, P)
+            up = (lv.up + (b * levels[l + 1].points.shape[1])[:, None]
+                  ).reshape(-1)
+        out.append(PyramidLevel(lv.points.reshape(-1, 3),
+                                lv.valid.reshape(-1),
+                                merged(lv.neighbors, P), pool, up))
+    return out
+
+
+def _group_norm(x, valid, groups: int = 8, eps: float = 1e-5,
+                batch: int = 1):
+    """Group norm over the valid points (8 groups, no affine), of each of
+    the ``batch`` clouds that ``x`` [batch * P, C] holds one after the
+    other on its own."""
     C = x.shape[-1]
-    g = x.reshape(x.shape[0], groups, C // groups)
-    m = valid[:, None, None]
+    g = x.reshape(batch, -1, groups, C // groups)
+    m = valid.reshape(batch, -1)[:, :, None, None]
     zero = torch.zeros_like(g)
-    count = torch.clamp(torch.sum(valid), min=1).to(x.dtype) * (C // groups)
-    mean = torch.sum(torch.where(m, g, zero), dim=(0, 2), keepdim=True) / count
-    var = torch.sum(torch.where(m, (g - mean) ** 2, zero), dim=(0, 2),
+    count = torch.clamp(torch.sum(m, dim=1, keepdim=True), min=1).to(
+        x.dtype) * (C // groups)
+    mean = torch.sum(torch.where(m, g, zero), dim=(1, 3), keepdim=True) / count
+    var = torch.sum(torch.where(m, (g - mean) ** 2, zero), dim=(1, 3),
                     keepdim=True) / count
     return ((g - mean) / torch.sqrt(var + eps)).reshape(x.shape)
 
@@ -197,11 +244,12 @@ class ResnetB(nn.Module):
         self.skip = Linear(cin, cout)
 
     def forward(self, feats, supports: PyramidLevel, queries: PyramidLevel,
-                neighbors, kp, sigma):
-        x = _lrelu(_group_norm(self.down(feats), supports.valid))
+                neighbors, kp, sigma, batch: int = 1):
+        x = _lrelu(_group_norm(self.down(feats), supports.valid,
+                               batch=batch))
         x = kpconv(x, supports.points, queries.points, neighbors,
                    self.conv.weights, kp, sigma)
-        x = self.up(_lrelu(_group_norm(x, queries.valid)))
+        x = self.up(_lrelu(_group_norm(x, queries.valid, batch=batch)))
         skip = self.skip(feats)
         if queries.points.shape[0] != supports.points.shape[0]:
             fpad = torch.cat([skip, skip.new_full((1, skip.shape[1]), -1e9)])
@@ -263,8 +311,11 @@ class KPFCN(nn.Module):
                           config.out_dim)
 
 
-def kpfcn_encode(net: KPFCN, levels):
-    """(features [P_coarse, out_dim], the coarse PyramidLevel)."""
+def kpfcn_encode(net: KPFCN, levels, batch: int = 1):
+    """(features [P_coarse, out_dim], the coarse PyramidLevel). With
+    ``batch`` B the levels are ``merge_batch``'s of B clouds: the
+    features and the level hold the clouds one after the other, and the
+    group norms take each cloud alone."""
     config = net.config
     voxel = config.pyramid.first_voxel
     sigma = voxel * 1.2
@@ -272,25 +323,25 @@ def kpfcn_encode(net: KPFCN, levels):
     x = kpconv(l0.points.new_ones((l0.points.shape[0], config.in_dim)),
                l0.points, l0.points, l0.neighbors, net.stem.weights,
                net.kp_unit * sigma, sigma)
-    x = _lrelu(_group_norm(x, l0.valid))
+    x = _lrelu(_group_norm(x, l0.valid, batch=batch))
     skips = []
     for l, stage in enumerate(net.enc):
         level, nxt = levels[l], levels[l + 1]
         sigma = voxel * 1.2
         kp = net.kp_unit * sigma
         for block in stage.res:
-            x = block(x, level, level, level.neighbors, kp, sigma)
+            x = block(x, level, level, level.neighbors, kp, sigma, batch)
         skips.append(x)
-        x = stage.strided(x, level, nxt, level.pool, kp, sigma)
+        x = stage.strided(x, level, nxt, level.pool, kp, sigma, batch)
         voxel *= 2
     deep = levels[config.num_stages]
     sigma = voxel * 1.2
     x = net.final_res(x, deep, deep, deep.neighbors, net.kp_unit * sigma,
-                      sigma)
+                      sigma, batch)
     coarse_idx = config.num_stages
     for u, lin in enumerate(net.dec):
         coarse_idx = config.num_stages - 1 - u
         lvl = levels[coarse_idx]
         x = torch.cat([x[lvl.up], skips[coarse_idx]], dim=-1)
-        x = _lrelu(_group_norm(lin(x), lvl.valid))
+        x = _lrelu(_group_norm(lin(x), lvl.valid, batch=batch))
     return net.out(x), levels[coarse_idx]

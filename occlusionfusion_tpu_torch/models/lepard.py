@@ -1,13 +1,17 @@
 """Lepard-style point-cloud matcher and its scene flow (port of
 ``occlusionfusion_tpu/models/lepard.py``): KPFCN features of both clouds,
-the repositioning transformer, dual-softmax mutual matches, and the
-matched coarse flows blended onto every source point.
+the repositioning transformer, dual-softmax mutual matches, the motion
+coherence filter of the matched anchors, and the matched coarse flows
+blended onto every source point.
 
-Unbatched: the JAX ``batched_encode`` (the same maths over a stacked
-pair) and the ``motion_coherence_filter`` (``coherence_tau > 0``, off in
-the shipped checkpoints) are not ported and raise. The k-NN here is
-``ops/knn.knn_torch`` (the port of the XLA ``knn_lax`` the JAX Lepard
-calls), not kernel K1, which takes k = 4 for the skinning only.
+Both clouds are encoded one after the other, or with ``batched_encode``
+in one pyramid and encoder pass over both (the JAX ``vmap``: the pyramid
+built per cloud on a leading batch axis, then ``kpconv.merge_batch``).
+The coherence filter (``coherence_tau > 0``) is on in four of the seven
+matcher checkpoints' side-cars (``lepard_bridge_r5``, ``_r5b``, ``_r5d``
+and ``lepard_fine_r4``). The k-NN here is ``ops/knn.knn_torch`` (the
+port of the XLA ``knn_lax`` the JAX Lepard calls), not kernel K1, which
+takes k = 4 for the skinning only.
 """
 
 from __future__ import annotations
@@ -39,11 +43,6 @@ class LepardNet(nn.Module):
 
     def __init__(self, config: LepardConfig):
         super().__init__()
-        if config.batched_encode:
-            raise NotImplementedError("batched_encode is not ported")
-        if config.coherence_tau > 0.0:
-            raise NotImplementedError(
-                "motion_coherence_filter (coherence_tau > 0) is not ported")
         self.config = config
         self.kpfcn = K.KPFCN(config.kpfcn)
         self.proj = K.Linear(config.kpfcn.out_dim, config.reposition.dim)
@@ -62,27 +61,84 @@ class LepardMatches(NamedTuple):
     rigid_t: torch.Tensor  # [3]
 
 
+def _encode_pair(net: LepardNet, src_points, src_valid, tgt_points,
+                 tgt_valid):
+    """KPFCN features and coarse (points, valid) of both clouds:
+    ((f_src, pts, valid), (f_tgt, pts, valid))."""
+    config = net.config
+    pyr = config.kpfcn.pyramid
+    if not config.batched_encode:
+        out = []
+        for pts, vld in ((src_points, src_valid), (tgt_points, tgt_valid)):
+            f, c = K.kpfcn_encode(net.kpfcn, K.build_pyramid(pts, vld, pyr))
+            out.append((f, c.points, c.valid))
+        return out
+    # level 0 of each cloud alone (their sizes differ), then one pyramid
+    # on the stacked pair and one encoder pass over its merged layout
+    s0, sv0 = K.grid_subsample(src_points, src_valid, pyr.first_voxel,
+                               pyr.level_sizes[0])
+    t0, tv0 = K.grid_subsample(tgt_points, tgt_valid, pyr.first_voxel,
+                               pyr.level_sizes[0])
+    levels = K.build_pyramid_from_level0(torch.stack([s0, t0]),
+                                         torch.stack([sv0, tv0]), pyr)
+    f, c = K.kpfcn_encode(net.kpfcn, K.merge_batch(levels), batch=2)
+    return list(zip(f.reshape(2, -1, f.shape[-1]), c.points.reshape(2, -1, 3),
+                    c.valid.reshape(2, -1)))
+
+
 def lepard_match(net: LepardNet, src_points, src_valid, tgt_points,
                  tgt_valid) -> LepardMatches:
     config = net.config
-    pyr = config.kpfcn.pyramid
-    f_src, src_c = K.kpfcn_encode(net.kpfcn,
-                                  K.build_pyramid(src_points, src_valid, pyr))
-    f_tgt, tgt_c = K.kpfcn_encode(net.kpfcn,
-                                  K.build_pyramid(tgt_points, tgt_valid, pyr))
+    (f_src, src_c, src_cv), (f_tgt, tgt_c, tgt_cv) = _encode_pair(
+        net, src_points, src_valid, tgt_points, tgt_valid)
     f_src, f_tgt, R, t = TR.reposition_transformer(
-        net.reposition, net.proj(f_src), net.proj(f_tgt), src_c.points,
-        tgt_c.points, src_c.valid, tgt_c.valid)
-    conf = TR.dual_softmax_confidence(f_src, f_tgt, src_c.valid, tgt_c.valid,
+        net.reposition, net.proj(f_src), net.proj(f_tgt), src_c, tgt_c,
+        src_cv, tgt_cv)
+    conf = TR.dual_softmax_confidence(f_src, f_tgt, src_cv, tgt_cv,
                                       config.reposition.temperature)
     _, match_tgt, match_valid = TR.mutual_topk_matches(
         conf, config.match_threshold)
     return LepardMatches(
-        src_points=src_c.points, tgt_points=tgt_c.points,
-        src_valid=src_c.valid, tgt_valid=tgt_c.valid, confidence=conf,
-        match_tgt=match_tgt, match_valid=match_valid & src_c.valid,
-        rigid_R=R, rigid_t=t,
+        src_points=src_c, tgt_points=tgt_c, src_valid=src_cv,
+        tgt_valid=tgt_cv, confidence=conf, match_tgt=match_tgt,
+        match_valid=match_valid & src_cv, rigid_R=R, rigid_t=t,
     )
+
+
+def motion_coherence_filter(anchor_points, anchor_flows, valid,
+                            knn: int = 4, tau: float = 0.08,
+                            mad_mult: float = 0.0):
+    """The refined validity [S] of matched anchors: an anchor is dropped
+    where its flow is further than ``tau + mad_mult * MAD`` from the
+    component-wise median flow of its ``knn`` + 1 nearest valid anchors
+    (itself included; MAD, the median distance of those neighbours' flows
+    from that median). Anchors with ``(knn + 1) // 2`` or fewer valid
+    neighbour slots keep their validity (no quorum)."""
+    _, idx = knn_torch(anchor_points, anchor_points, knn + 1, valid)
+    idx = idx.long()
+    nb_ok = valid[idx]  # [S, k+1]
+    nb_flows = anchor_flows[idx]  # [S, k+1, 3]
+    med = _masked_median(nb_flows, nb_ok[..., None].expand_as(nb_flows),
+                         dim=1)
+    dev = torch.linalg.vector_norm(anchor_flows - med, dim=-1)
+    nb_dev = torch.linalg.vector_norm(nb_flows - med[:, None, :], dim=-1)
+    mad = _masked_median(nb_dev, nb_ok, dim=1)
+    quorum = torch.sum(nb_ok, dim=1) > (knn + 1) // 2
+    return valid & ((dev <= tau + mad_mult * mad) | ~quorum)
+
+
+def _masked_median(x, mask, dim: int):
+    """Median of ``x`` along ``dim`` over the ``mask`` slots only (the
+    others sorted to the end as the largest float, the middle one or two
+    of the valid slots taken by count); 0 where no slot is valid."""
+    big = torch.full_like(x, torch.finfo(x.dtype).max)
+    xs = torch.sort(torch.where(mask, x, big), dim=dim).values
+    cnt = torch.sum(mask, dim=dim, keepdim=True)
+    lo = torch.clamp(torch.div(cnt - 1, 2, rounding_mode="floor"), min=0)
+    hi = torch.div(cnt, 2, rounding_mode="floor")
+    med = 0.5 * (torch.take_along_dim(xs, lo, dim)
+                 + torch.take_along_dim(xs, hi, dim))
+    return torch.where(cnt > 0, med, torch.zeros_like(med)).squeeze(dim)
 
 
 def blend_anchor_motion(query_points, anchor_points, anchor_flows,
@@ -106,8 +162,10 @@ def scene_flow(net: LepardNet, source_points, source_valid, target_points,
     """Match the clouds, then blend the matched coarse flows onto every
     source point. Both clouds are rescaled about their joint centroid to
     the RMS radius ``normalize_radius`` before matching (KPConv's voxel
-    fixes an absolute scale) and the flows scaled back; the blend runs
-    in metric space. Returns (flow [P, 3], mask [P], matches)."""
+    fixes an absolute scale) and the flows scaled back; with
+    ``coherence_tau`` > 0 the coherence filter refines the matches there;
+    the blend runs in metric space. Returns (flow [P, 3], mask [P],
+    matches, their ``match_valid`` the refined one)."""
     config = net.config
     both = torch.cat([source_points, target_points])
     w = torch.cat([source_valid, target_valid]).to(torch.float32)[:, None]
@@ -118,9 +176,16 @@ def scene_flow(net: LepardNet, source_points, source_valid, target_points,
     scale = normalize_radius / torch.clamp(rms, min=1e-6)
     m = lepard_match(net, (source_points - center) * scale, source_valid,
                      (target_points - center) * scale, target_valid)
+    match_valid = m.match_valid
+    if config.coherence_tau > 0.0:
+        # in the normalized space, where tau is scale-free
+        match_valid = motion_coherence_filter(
+            m.src_points, m.tgt_points[m.match_tgt] - m.src_points,
+            match_valid, knn=config.coherence_knn, tau=config.coherence_tau,
+            mad_mult=config.coherence_mad)
     anchor_flow = (m.tgt_points[m.match_tgt] - m.src_points) / scale
     anchor_pos = m.src_points / scale + center
     flow, mask = blend_anchor_motion(
-        source_points, anchor_pos, anchor_flow, m.match_valid,
+        source_points, anchor_pos, anchor_flow, match_valid,
         knn=config.blend_knn, radius=config.blend_radius)
-    return flow, mask & source_valid, m
+    return flow, mask & source_valid, m._replace(match_valid=match_valid)

@@ -6,8 +6,9 @@ coarse features. A positioning layer matches (dual softmax), fits a
 rigid transform by soft Procrustes (``geometry/kabsch.weighted_kabsch``,
 which takes no host sync, so a CUDA graph captures it), rewarps the
 source points and recomputes their rotary encoding. Attention is dense
-with padding masks. ``sinkhorn_confidence`` is off the fused path and is
-not ported.
+with padding masks. ``sinkhorn_confidence``, the entropic optimal
+transport alternative to the dual softmax, has no caller on the fused
+path.
 """
 
 from __future__ import annotations
@@ -105,6 +106,44 @@ def dual_softmax_confidence(feats_src, feats_tgt, src_valid, tgt_valid,
     sim = torch.where(pair, sim, torch.full_like(sim, _NEG))
     conf = torch.softmax(sim, dim=0) * torch.softmax(sim, dim=1)
     return torch.where(pair, conf, torch.zeros_like(conf))
+
+
+def sinkhorn_confidence(feats_src, feats_tgt, src_valid, tgt_valid,
+                        temperature: float = 0.1, iters: int = 3,
+                        dustbin_score: float | None = None):
+    """[S, T] entropic optimal-transport confidence, ``iters`` Sinkhorn
+    iterations in log space, 0 off the valid pairs. With
+    ``dustbin_score`` a slack row and column of that score absorb the
+    unmatched mass (each may take the whole other side's); without it the
+    padding masks do."""
+    M = (_unit_rows(feats_src) @ _unit_rows(feats_tgt).T) / temperature
+    pair = src_valid[:, None] & tgt_valid[None, :]
+    M = torch.where(pair, M, torch.full_like(M, _NEG))
+    S, T = M.shape
+    src_m, tgt_m = src_valid, tgt_valid
+    log_a = torch.where(src_m, 0.0, _NEG)
+    log_b = torch.where(tgt_m, 0.0, _NEG)
+    if dustbin_score is not None:
+        M = torch.cat([M, M.new_full((S, 1), dustbin_score)], dim=1)
+        M = torch.cat([M, M.new_full((1, T + 1), dustbin_score)], dim=0)
+        one = src_valid.new_ones(1)
+        src_m, tgt_m = torch.cat([src_m, one]), torch.cat([tgt_m, one])
+
+        def mass(v):
+            return torch.log(torch.clamp(torch.sum(v).to(M.dtype),
+                                         min=1.0))[None]
+
+        log_a = torch.cat([log_a, mass(tgt_valid)])
+        log_b = torch.cat([log_b, mass(src_valid)])
+    u = M.new_zeros(M.shape[0])
+    v = M.new_zeros(M.shape[1])
+    for _ in range(iters):
+        u = log_a - torch.logsumexp(M + v[None, :], dim=1)
+        u = torch.where(src_m, u, torch.zeros_like(u))
+        v = log_b - torch.logsumexp(M + u[:, None], dim=0)
+        v = torch.where(tgt_m, v, torch.zeros_like(v))
+    P = torch.exp(M + u[:, None] + v[None, :])[:S, :T]
+    return torch.where(pair, P, torch.zeros_like(P))
 
 
 def mutual_topk_matches(conf, threshold: float = 0.05):

@@ -40,7 +40,7 @@ _CHUNK = 16384
 
 def _sq3(x: torch.Tensor) -> torch.Tensor:
     """|r|^2 = (x0*x0 + x1*x1) + x2*x2, each op rounded."""
-    return x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1] + x[:, 2] * x[:, 2]
+    return x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1] + x[..., 2] * x[..., 2]
 
 
 def _fma(a, b, c):
@@ -66,34 +66,39 @@ def _bias(valid, n: int, like: torch.Tensor) -> torch.Tensor:
 
 def knn_torch(queries, refs, k: int, valid=None):
     """Plain PyTorch twin: chunked dense distances + a stable sort.
-    Returns (sq_dists [P, k] f32, idx [P, k] int32).
+    Returns (sq_dists [..., P, k] f32, idx [..., P, k] int32) for queries
+    [..., P, 3], refs [..., N, 3] and valid [..., N], the leading
+    (batch) axes broadcast: each batch entry is the unbatched search.
 
     Besides K1's twin, this is the port of ``knn_lax`` wherever the JAX
     package calls that XLA function itself, on the card too: the Lepard
-    matcher's neighbourhoods (k = 24-30), its 1-NN upsampling and its
-    3-NN flow blend (``models/kpconv.py``, ``models/lepard.py``). K1
-    replaces the TPU kernel ``knn_pallas`` and takes k = 4 only; it keeps
-    the skinning calls."""
+    matcher's neighbourhoods (k = 24-30, batched over the two clouds with
+    ``batched_encode``), its 1-NN upsampling, its 3-NN flow blend and
+    its coherence filter's neighbourhoods (``models/kpconv.py``,
+    ``models/lepard.py``). K1 replaces the TPU kernel ``knn_pallas`` and
+    takes k = 4 only; it keeps the skinning calls."""
     queries = queries.to(torch.float32)
     refs = refs.to(torch.float32)
-    P, N = queries.shape[0], refs.shape[0]
+    P, N = queries.shape[-2], refs.shape[-2]
     k = min(k, N)
-    ref_sq = _sq3(refs)
-    bias = _bias(valid, N, refs)
+    ref_sq = _sq3(refs)[..., None, :]
+    bias = _bias(valid, N, refs)[..., None, :]
     d2s, idxs = [], []
     for lo in range(0, P, _CHUNK):
-        q = queries[lo : lo + _CHUNK]
-        dot = _fma_dot3(q[:, None, :], refs[None, :, :])
-        d2 = _fma_dot3(q, q)[:, None] - 2.0 * dot + ref_sq[None, :] + bias[None, :]
-        top, idx = torch.sort(d2, dim=1, stable=True)
-        d2s.append(torch.clamp(top[:, :k], min=0.0))
-        idxs.append(idx[:, :k].to(torch.int32))
+        q = queries[..., lo : lo + _CHUNK, :]
+        dot = _fma_dot3(q[..., :, None, :], refs[..., None, :, :])
+        d2 = _fma_dot3(q, q)[..., None] - 2.0 * dot + ref_sq + bias
+        top, idx = torch.sort(d2, dim=-1, stable=True)
+        d2s.append(torch.clamp(top[..., :k], min=0.0))
+        idxs.append(idx[..., :k].to(torch.int32))
     if not d2s:
+        shape = torch.broadcast_shapes(queries.shape[:-2],
+                                       refs.shape[:-2]) + (0, k)
         return (
-            torch.zeros((0, k), dtype=torch.float32, device=queries.device),
-            torch.zeros((0, k), dtype=torch.int32, device=queries.device),
+            torch.zeros(shape, dtype=torch.float32, device=queries.device),
+            torch.zeros(shape, dtype=torch.int32, device=queries.device),
         )
-    return torch.cat(d2s), torch.cat(idxs)
+    return torch.cat(d2s, dim=-2), torch.cat(idxs, dim=-2)
 
 
 # the most refs K1 stages in shared memory on the H100: 20 bytes each

@@ -183,6 +183,8 @@ def test_perception_nets_are_required():
     seq = sphere_frames(1)
     with pytest.raises(ValueError, match="lepard_net"):
         DynamicFusion(seq, FusionConfig(use_lepard=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="MaskNet"):
-        DynamicFusion(seq, FusionConfig(use_flow=True), device="cpu",
-                      flow_net=object())
+    with pytest.raises(ValueError, match="flow_net"):
+        DynamicFusion(seq, FusionConfig(use_flow=True), device="cpu")
+    # flow without MaskNet weighs each valid flow target 1
+    DynamicFusion(seq, FusionConfig(use_flow=True), device="cpu",
+                  flow_net=object())

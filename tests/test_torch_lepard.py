@@ -228,10 +228,3 @@ def test_scene_flow_matches_jax(nets):
     np.testing.assert_allclose(flow.numpy(), np.asarray(flow_j), atol=1e-5)
     np.testing.assert_allclose(m.rigid_R.numpy(), np.asarray(m_j.rigid_R),
                                atol=1e-5)
-
-
-@pytest.mark.parametrize("field,value", [("batched_encode", True),
-                                         ("coherence_tau", 0.05)])
-def test_unported_matcher_settings_raise(field, value):
-    with pytest.raises(NotImplementedError):
-        L.LepardNet(L.LepardConfig(**{field: value}))
