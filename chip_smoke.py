@@ -4,6 +4,7 @@ NVIDIA card.
 
     python3 chip_smoke.py [--ptxas] [--profile]
     python3 chip_smoke.py [--ptxas] --gn-compare TREE [TREE ...]
+    python3 chip_smoke.py --keyframe-spread RUNS
 
 ``--ptxas`` prints each kernel's registers and spills; ``--profile``
 traces frames 2-16 of the paths `main_path` and `envelope_flow`, one
@@ -136,7 +137,39 @@ Phases, each printing one JSON line with its wall seconds:
      TAP_FRAME, eager and from a CUDA graph, with the device ops and
      device ms of one Adam iteration from traces of 10- and 20-iteration
      solves and the top ops;
- 18. parity of N-ICP (20 Adam iterations) as in phase 11.
+ 18. parity of N-ICP (20 Adam iterations) as in phase 11;
+ 19. keyframe_path: the JAX FusionConfig defaults with growth and
+     keyframes every 16th frame (keyframe_config) on keyframe_sequence (an
+     ellipsoid receding 4 mm a frame for 24 frames and coming back, a
+     sphere sliding in beside it) through DynamicFusion.run_fused(chunk=16)
+     over 48 frames and get_deformed_mesh, held to the JAX package's run
+     (KEYFRAME_REFERENCE, scripts/torch_keyframe_reference.py): exactly up
+     to the first growth (its new nodes and refreshed bricks, each
+     frame's correspondences), after it within KEYFRAME_SPREAD_LIMITS
+     (later growths, node and brick counts, the ellipsoid's median node
+     translation, correspondences); the launches of K1 (initialize, each
+     refresh and growth, the mesh) and K2 (each replay and each graph's
+     warm-up); frames/s, each growth keyframe's host and recapture
+     seconds, initialize seconds, peak memory; then K1 against its twin
+     on each refresh's and growth's inputs and K2 on the grown table;
+ 20. keyframe_growth_case: the growth at frame 32 of keyframe_path on
+     the JAX package's own state entering it (KEYFRAME_CASE_NPZ): the
+     growth's counts, brick table and edges equal to JAX's, its nodes
+     and warp within 1e-5 m, and the next frame's step, captured on the
+     rebuilt tables, held to JAX's as the main path's steps are;
+ 21. keyframe_stepwise: the same input through DynamicFusion.run over 32
+     frames with keyframes every 2nd and growth every 8th frame, a rigid
+     3 cm drift injected before the keyframe work of frame 10, held to
+     the JAX package's run (KEYFRAME_STEPWISE_REFERENCE): loop closures
+     per keyframe, the drift's correction and the error it leaves; then
+     a save_state at frame 16 resumed twice in fresh objects: frame 17's
+     fused step gets the uninterrupted run's arguments bit for bit and,
+     run with torch's deterministic algorithms, gives its result bit
+     for bit;
+ 22. parity of the keyframe machinery as in phase 11: `keyframe`
+     (run_fused with growth, brick refresh and keyframes), `recovery` (a
+     lost track recovered with the matcher's feature seed) and `cluster`
+     (a starved component frozen; K3' and K4' with frozen nodes).
 Each phase prints its wall seconds. Then one JSON line with the kernel
 table: every kernel on the main path's own inputs (K1 on each of its two
 calls), with its launches in the main path's run, on the headline's,
@@ -144,12 +177,19 @@ with its launches in the headline's run (K1 in initialize and the mesh;
 K2, K3' and K4' per replayed frame plus the one warm-up step before
 capture), the same on the perception path's own inputs with that run's
 launches (K3' on advect's fractional weights), and K1 and K2 on the
-N-ICP path's, with its launches; then the
+N-ICP path's, with its launches, and K1 on each refresh's and growth's
+inputs of the keyframe path and K2 on its grown table, with that run's
+launches; then the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises and exits
 nonzero. Without a CUDA device, or without the port's package beside
 this file, it exits nonzero and prints no result. It imports nothing of
 JAX or of the JAX package.
+
+``--keyframe-spread RUNS`` runs the phases keyframe_path and
+keyframe_stepwise RUNS times each on their one input with the JAX checks
+off (their readings printed, no kernel rows): the gaps between the
+card's own runs are what KEYFRAME_SPREAD_LIMITS are set from.
 
 ``--gn-compare`` runs, for each TREE in the order given and each in its
 own process, the main path to frame 8 with that tree's package, then
@@ -276,6 +316,160 @@ NICP_CORRESPONDENCE_TOL = 0.005
 # timed in turns: an eager N-ICP step takes ~0.7 s
 NICP_CHECK_FRAMES = (0, 7, 15)
 NICP_RATE_FRAMES = 2
+# the keyframe phases (keyframe_path, keyframe_stepwise): the JAX
+# FusionConfig defaults (keyframe_config) on keyframe_sequence: an
+# ellipsoid at the main path's distance receding STEP_Z a frame for
+# KEYFRAME_TURN frames, then coming back, and a sphere (KEYFRAME_SECOND)
+# sliding in from the right, out of view at frame 0, stopping beside the
+# ellipsoid at frame 10 and then moving in depth with it. Phase keyframe_path:
+# run_fused(chunk=16) over KEYFRAME_FRAMES frames with growth and
+# keyframes every 16th frame. Phase keyframe_stepwise: DynamicFusion.run
+# over KEYFRAME_STEPWISE_FRAMES frames, keyframes every 2nd and growth
+# every 8th frame, a rigid KEYFRAME_DRIFT offset left-composed into the
+# warp before the keyframe work of frame KEYFRAME_DRIFT_FRAME, and a
+# save_state at frame KEYFRAME_SAVE_FRAME resumed in a fresh object.
+# The main object is an ellipsoid (KEYFRAME_AXES, the main path's
+# sphere's radius its largest): a sphere turns freely about its centre
+# under depth-only association, and that unobservable turn took the JAX
+# run's keyframe poses 50 degrees off by frame 48 (the main path's sphere
+# here), so neither its trajectory nor its nodes' median could be held to
+# anything. "Main nodes" are the nodes within KEYFRAME_MAIN_RADIUS (in
+# units of the axes) of the ellipsoid's centre in canonical space.
+KEYFRAME_FRAMES = 48
+KEYFRAME_TURN = 24
+KEYFRAME_AXES = (0.14, 0.10, 0.08)
+KEYFRAME_SECOND = dict(radius=0.06, x0=0.72, dx=-0.05, x_stop=0.22)
+KEYFRAME_MAIN_RADIUS = 1.3
+KEYFRAME_GROWTH = 16
+KEYFRAME_INTERVAL = 16
+KEYFRAME_STEPWISE_FRAMES = 32
+KEYFRAME_STEPWISE = dict(keyframe_interval=2, growth_interval=8)
+KEYFRAME_DRIFT = (0.005, 0.0, 0.03)
+KEYFRAME_DRIFT_FRAME = 10
+KEYFRAME_SAVE_FRAME = 16
+# the resumed runs register one frame, whose fused step is held to the
+# uninterrupted run's: the same arguments bit for bit, and the same
+# result bit for bit when both run again with torch's deterministic
+# algorithms. Run as the loop runs it, N-ICP's scatter-adds take their
+# atomics' order, and two eager runs from one state part by 1e-8-4e-5 m
+# after a growth (ROADMAP F12): printed, not held
+KEYFRAME_RESUME_CHECK_FRAME = 17
+# the stepwise run is held to JAX exactly up to this frame: the first
+# growth's counts and the loop closures of its keyframes
+KEYFRAME_STEPWISE_EXACT = 14
+# the JAX package's runs on the CPU (scripts/torch_keyframe_reference.py),
+# the fields the checks read: the keyframe poses up to the first growth
+KEYFRAME_REFERENCE = {
+    'growth': [{'frame': 16, 'n_new_nodes': 11, 'n_new_bricks': 223},
+               {'frame': 32, 'n_new_nodes': 39, 'n_new_bricks': 198},
+               {'frame': 48, 'n_new_nodes': 37, 'n_new_bricks': 15}],
+    'nodes': 109,
+    'active_bricks': 792,
+    'main_median_translation': [-0.002597264014184475, -0.005206703674048185,
+                                -0.014102970249950886],
+    'trajectory': {'frames': [0, 16, 32, 48],
+                   'R': [[[1.000000238418579, -1.0175351672359056e-09,
+                           2.0950672308117646e-09],
+                          [-1.2064008680923166e-09, 1.0,
+                           1.320751010780441e-07],
+                          [-1.8586510108775656e-09, -1.363274293453287e-07,
+                           1.000000238418579]],
+                         [[0.999923825263977, -0.00032762085902504623,
+                           -0.012358812615275383],
+                          [1.009058814815944e-05, 0.9996703267097473,
+                           -0.025683943182229996],
+                          [0.01236313208937645, 0.025681927800178528,
+                           0.9995944499969482]]],
+                   't': [[-5.9371814131736755e-09, -3.8940925151109695e-07,
+                          -7.152557373046875e-07],
+                         [0.03680881857872009, 0.07584566622972488,
+                          0.0641326904296875]]},
+    'keyframes': [{'frame': 16, 'loop_closures': 0},
+                  {'frame': 32, 'loop_closures': 0},
+                  {'frame': 48, 'loop_closures': 0}],
+    'n_correspondences': [5032, 4968, 4945, 4913, 4866, 4829, 4808, 4798, 4772,
+                          4773, 4784, 4784, 4763, 4744, 4723, 4732, 4608, 4688,
+                          4726, 4756, 4764, 4772, 4770, 4784, 4814, 4880, 4957,
+                          5005, 5016, 5024, 5029, 5040, 5045, 5041, 5039, 5042,
+                          5046, 5054, 5057, 5057, 5059, 5058, 5054, 5054, 5057,
+                          5054, 5059, 5063],
+}
+
+KEYFRAME_STEPWISE_REFERENCE = {
+    'growth': [{'frame': 8, 'n_new_nodes': 8, 'n_new_bricks': 99},
+               {'frame': 16, 'n_new_nodes': 26, 'n_new_bricks': 221},
+               {'frame': 24, 'n_new_nodes': 52, 'n_new_bricks': 166},
+               {'frame': 32, 'n_new_nodes': 8, 'n_new_bricks': 6}],
+    'nodes': 116,
+    'active_bricks': 848,
+    'main_median_translation': [0.002559454645961523, 0.003112711478024721,
+                                0.05535745620727539],
+    'trajectory': {'frames': [0, 2, 4, 6, 8, 10, 12, 14, 16, 18, 20, 22, 24,
+                              26, 28, 30, 32],
+                   'R': [],
+                   't': []},
+    'keyframes': [{'frame': 2, 'loop_closures': 0},
+                  {'frame': 4, 'loop_closures': 0},
+                  {'frame': 6, 'loop_closures': 0},
+                  {'frame': 8, 'loop_closures': 0},
+                  {'frame': 10, 'loop_closures': 1},
+                  {'frame': 12, 'loop_closures': 2},
+                  {'frame': 14, 'loop_closures': 3},
+                  {'frame': 16, 'loop_closures': 0},
+                  {'frame': 18, 'loop_closures': 0},
+                  {'frame': 20, 'loop_closures': 0},
+                  {'frame': 22, 'loop_closures': 0},
+                  {'frame': 24, 'loop_closures': 0},
+                  {'frame': 26, 'loop_closures': 1},
+                  {'frame': 28, 'loop_closures': 0},
+                  {'frame': 30, 'loop_closures': 0},
+                  {'frame': 32, 'loop_closures': 0}],
+    'n_correspondences': [5032, 4968, 4945, 4913, 4866, 4829, 4808, 4798, 4703,
+                          4719, 4626, 4662, 4699, 4734, 4755, 4762, 4744, 4739,
+                          4734, 4730, 4686, 4666, 4649, 4665, 4717, 4707, 4698,
+                          4704, 4725, 4733, 4778, 4802],
+    'drift': {'before': 0.030407674610614777,
+              'after': 0.005094711668789387,
+              'pose_correction': 0.15082713589072227},
+}
+
+# Phase keyframe_growth_case: keyframe_path's growth keyframe at
+# KEYFRAME_CASE_FRAME as a fixed input (KEYFRAME_CASE_NPZ, written by
+# scripts/torch_keyframe_reference.py growth_case: the state entering
+# that growth in the JAX package's run_fused, its canonical TSDF as int16
+# on a 1/KEYFRAME_CASE_TSDF_Q grid, and JAX's results on exactly that
+# input): the growth's counts, brick table and edges equal to JAX's, its
+# nodes and the grown warp within KEYFRAME_CASE_NODE_TOL; then the next
+# frame's step captured on the rebuilt tables and replayed: the
+# correspondences within NICP_CORRESPONDENCE_TOL of JAX's, the median
+# node within STEP_MEDIAN_LIMIT (or 3x the same step's graph-vs-graph or
+# graph-vs-eager median gap on the card, where that is larger) and the
+# STEP_PERCENTILE-th percentile within STEP_PERCENTILE_LIMITS (or 3x the
+# same gaps), as the main path's step checks hold a step (F5)
+KEYFRAME_CASE_FRAME = 32
+KEYFRAME_CASE_NPZ = os.path.join(HERE, "reference", "keyframe_growth.npz")
+KEYFRAME_CASE_TSDF_Q = 32767.0
+KEYFRAME_CASE_NODE_TOL = 1e-5
+
+# After the first growth the keyframe runs are chaotic on the card
+# itself: the grown nodes anchor no model point, so only ARAP and the
+# motion prior hold them, and the atomics' rounding in N-ICP's backward
+# grows into different node sets at the next growth (ROADMAP F12). Those
+# readings are held within these limits of JAX's: three times the
+# largest gap between the card's own runs of the same input (NVIDIA H100
+# 80GB HBM3, 700.00 W; keyframe_path 2 runs, keyframe_stepwise 4 runs):
+# new nodes and bricks of a later growth, final node and brick counts,
+# the main nodes' median translation (m, any axis), and the largest
+# relative gap of a later frame's correspondences
+KEYFRAME_SPREAD_LIMITS = {
+    "keyframe_path": dict(growth_nodes=96, growth_bricks=417, nodes=96,
+                          active_bricks=423, main_median_m=0.0191,
+                          correspondences=0.0227),
+    "keyframe_stepwise": dict(growth_nodes=135, growth_bricks=435,
+                              nodes=153, active_bricks=435,
+                              main_median_m=0.0121, correspondences=0.128),
+}
+
 # the perception phases: the headline's settings (headline_config) on
 # the textured sphere at 1 m moving PERCEPTION["step"] a frame in z and
 # PERCEPTION["lateral"] in x (~4.4 px of flow a frame), with Lepard from
@@ -1189,13 +1383,17 @@ class SolveTap:
 class KernelInputTap:
     """Within the block, keeps the arguments K1 and K2 receive on the
     path: those of every k-NN call, by query count (``knn``, P -> call;
-    ``initialize`` skins the voxel centres and the model points), and
-    those of the ``at``-th LBS voxel warp (that of frame ``at``). Patches
-    the names the path calls (``skinning.knn``, ``fused_step.lbs_warp``),
-    which every tree of the port has."""
+    ``initialize`` skins the voxel centres and the model points), or with
+    ``keep_all`` every call in order, each under the ``label`` the caller
+    set before it (``calls``: (label, P, call)); and those of the
+    ``at``-th LBS voxel warp (that of frame ``at``), or with ``at`` None
+    of the last one made outside a graph capture. Patches the names the
+    path calls (``skinning.knn``, ``fused_step.lbs_warp``), which every
+    tree of the port has."""
 
-    def __init__(self, at):
+    def __init__(self, at, keep_all=False):
         self.at, self.lbs_calls, self.knn, self.lbs = at, 0, {}, None
+        self.keep_all, self.label, self.calls = keep_all, "", []
 
     def __enter__(self):
         from occlusionfusion_tpu_torch.fusion import fused_step
@@ -1206,14 +1404,21 @@ class KernelInputTap:
         knn, lbs_warp = self.orig
 
         def knn_tap(queries, refs, k, valid=None):
-            self.knn[queries.shape[0]] = (
-                queries.clone(), refs.clone(), k,
-                None if valid is None else valid.clone())
+            call = (queries.clone(), refs.clone(), k,
+                    None if valid is None else valid.clone())
+            if self.keep_all:
+                self.calls.append((self.label, queries.shape[0], call))
+            else:
+                self.knn[queries.shape[0]] = call
             return knn(queries, refs, k, valid=valid)
 
         def lbs_tap(points, anchors, weights, valid, state):
+            import torch
+
             self.lbs_calls += 1
-            if self.lbs_calls == self.at:
+            if self.lbs_calls == self.at or self.at is None and not (
+                    points.is_cuda
+                    and torch.cuda.is_current_stream_capturing()):
                 self.lbs = (points, anchors, weights, valid, state)
             return lbs_warp(points, anchors, weights, valid, state)
 
@@ -2327,6 +2532,75 @@ def batched_encode_check(dev, lepard_net, seq):
     return out
 
 
+def spheres_depths(frames, h, w, intr):
+    """Closed-form z-depth of the nearest of each frame's spheres
+    ((centre, radius), ...; None: an empty frame) seen from the pinhole
+    camera at the origin."""
+    import numpy as np
+
+    v, u = np.mgrid[0:h, 0:w].astype(np.float32)
+    d = np.stack([(u - intr.cx) / intr.fx, (v - intr.cy) / intr.fy,
+                  np.ones_like(u)], -1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    depths = []
+    for spheres in frames:
+        best = np.full((h, w), np.inf)
+        for c, r in spheres or ():
+            c = np.asarray(c, np.float32)
+            b = d @ c
+            disc = b * b - (c @ c - r * r)
+            t = b - np.sqrt(np.maximum(disc, 0))
+            best = np.where((disc > 0) & (t > 0) & (t < best), t, best)
+        depths.append(np.where(np.isfinite(best), best * d[..., 2], 0.0)
+                      .astype(np.float32))
+    return depths
+
+
+def parity_keyframe_sequences():
+    """The keyframe parity rows' inputs, at the size of
+    tests/test_torch_keyframe_*.py: `keyframe`, tests/test_fusion_e2e.py's
+    sphere (1 m, 4 mm a frame back) with a second one sliding in from the
+    right (128x128, f = 300 px); `recovery`, that sphere, a frame without
+    depth, then the sphere 2 cm to the side; `cluster`,
+    tests/test_cluster_filter.py's two components, the second 90%
+    occluded in frame 1, its sliver of depth shifted 2 cm (96x160,
+    f = 220 px)."""
+    import numpy as np
+
+    from occlusionfusion_tpu_torch.fusion.frame_loader import ArraySequence
+    from occlusionfusion_tpu_torch.geometry.camera import Intrinsics
+
+    def seq(depths, intr):
+        h, w = depths[0].shape
+        return ArraySequence([np.full((h, w, 3), 128.0, np.float32)]
+                             * len(depths), depths, intr)
+
+    e2e = Intrinsics(300.0, 300.0, 64.0, 64.0)
+    appearing = spheres_depths(
+        [[((0.0, 0.0, 1.0 + 0.004 * i), 0.1),
+          ((0.22 - 0.02 * i, 0.0, 0.95), 0.04)] for i in range(5)],
+        128, 128, e2e)
+    lost = spheres_depths(
+        [[((0.0, 0.0, 1.0), 0.1)], [((0.0, 0.0, 1.004), 0.1)], None,
+         [((0.02, 0.0, 1.004), 0.1)]], 128, 128, e2e)
+    two = Intrinsics(220.0, 220.0, 80.0, 48.0)
+    ca, cb = np.asarray([-0.12, 0.0, 0.6]), np.asarray([0.12, 0.0, 0.6])
+    d0, d1 = spheres_depths([[(ca, 0.07), (cb, 0.07)],
+                             [(ca + [0, 0, 0.004], 0.07), (cb, 0.07)]],
+                            96, 160, two)
+    right = np.zeros((96, 160), bool)
+    right[:, 80:] = True
+    b_pix = (d1 > 0) & right
+    rows = np.nonzero(b_pix)[0]
+    keep = np.zeros((96, 160), bool)
+    rmin = rows.min()
+    keep[rmin: rmin + max((rows.max() - rmin) // 10, 2)] = True
+    d1 = np.where(b_pix & ~keep, 0.0, d1)
+    d1 = np.where(b_pix & keep, d1 + 0.02, d1).astype(np.float32)
+    return {"keyframe": seq(appearing, e2e), "recovery": seq(lost, e2e),
+            "cluster": seq([d0, d1], two)}
+
+
 def phase_parity(dev, paths):
     """The ``paths`` among the main path, the envelope, the headline,
     N-ICP (20 Adam iterations), the two perception phases' settings
@@ -2358,6 +2632,7 @@ def phase_parity(dev, paths):
     from occlusionfusion_tpu_torch.graph.edgraph import GraphConfig
     from occlusionfusion_tpu_torch.models.checkpoint import (
         load_flow_nets,
+        load_lepard_checkpoint,
         load_motion_complete_net,
     )
     from occlusionfusion_tpu_torch.solvers.gauss_newton import GNConfig
@@ -2425,6 +2700,32 @@ def phase_parity(dev, paths):
                             lambda d: perception_nets(d, False),
                             PERCEPTION_BF16_PARITY_LIMITS, "run_fused"),
     }
+    if any(p in paths for p in ("keyframe", "recovery", "cluster")):
+        kf = parity_keyframe_sequences()
+        gn0 = dict(gn, w_motion=0.0)
+        nicp60 = NICPConfig(iters=60, w_motion=0.0, lr=0.02)
+        cases.update({
+            # growth with the brick refresh and keyframes, run_fused
+            "keyframe": (kf["keyframe"], FusionConfig(
+                solver="gn_dense", gn=GNConfig(**gn), brick_size=4,
+                max_bricks=1024, growth_interval=2, keyframe_interval=2,
+                loop_min_separation=2, **small), lambda d: {},
+                PARITY_LIMITS, "run_fused"),
+            # a lost track recovered with the matcher's feature seed
+            "recovery": (kf["recovery"], FusionConfig(
+                nicp=nicp60, use_motion_model=False, keyframe_interval=1,
+                loop_min_separation=2, relocalize_recovery=True,
+                relocalize_feat_min_points=8, lepard_max_target_points=512,
+                **small), lambda d: {"lepard_net": load_lepard_checkpoint(
+                    device=d)[0]}, HEADLINE_PARITY_LIMITS, "run"),
+            # a starved component frozen (K3' and K4' with frozen nodes)
+            "cluster": (kf["cluster"], FusionConfig(
+                solver="gn_dense", gn=GNConfig(**gn0), nicp=nicp60,
+                use_motion_model=False, min_cluster_matches=400.0,
+                **dict(small, node_coverage=0.035, graph=GraphConfig(
+                    node_coverage=0.035, min_neighbors=2))),
+                lambda d: {}, PARITY_LIMITS, "run"),
+        })
 
     def run_on(d, seq, cfg, nets_of, loop):
         f = DynamicFusion(seq, cfg, device=d, **nets_of(d))
@@ -2475,6 +2776,22 @@ def phase_parity(dev, paths):
         if cfg.use_lepard:
             assert all(i["n_lepard_matches"] == 0 for i in ig
                        if i["frame"] % cfg.lepard_every), ig
+        if path == "keyframe":
+            assert [i.get("n_new_nodes") for i in ig] == [
+                i.get("n_new_nodes") for i in ic], (ig, ic)
+            assert ig[-1]["n_new_nodes"] > 0, ig
+            np.testing.assert_array_equal(fg.brick_ids, fc.brick_ids)
+        if path == "recovery":
+            assert [i["reloc_feat_matches"] for i in ig] == [
+                i["reloc_feat_matches"] for i in ic], (ig, ic)
+            assert ig[2]["reloc_feat_matches"] >= 8 and not fg.track_lost
+            assert abs(ig[2]["pose_correction"]
+                       - ic[2]["pose_correction"]) <= 1e-4, (ig, ic)
+        if path == "cluster":
+            t = fg.warp.translations[:n].cpu().numpy()
+            is_b = fg.nodes[:n, 0].cpu().numpy() > 0.0
+            assert np.abs(t[is_b]).max() == 0.0 and np.abs(
+                t[~is_b]).max() > 1e-3
 
 
 def nicp_config(vol=VOL, voxel=VOXEL, max_points=MAX_POINTS,
@@ -2494,6 +2811,77 @@ def nicp_config(vol=VOL, voxel=VOXEL, max_points=MAX_POINTS,
     )
     assert cfg.solver == "nicp" and cfg.brick_size == -1
     return cfg
+
+
+def keyframe_sequence(n_frames=KEYFRAME_FRAMES + 1, h=IMG_H, w=IMG_W,
+                      distance=DISTANCE):
+    """The keyframe phases' input: an ellipsoid (KEYFRAME_AXES) at
+    ``distance`` receding STEP_Z a frame until frame KEYFRAME_TURN, then
+    coming back, and a sphere (KEYFRAME_SECOND) sliding in from the right,
+    out of view at frame 0, until it stops beside the ellipsoid and moves
+    in depth with it; ray-cast in closed form, flat grey. Returns the
+    sequence and the ellipsoid's centres."""
+    import numpy as np
+
+    from occlusionfusion_tpu_torch.fusion.frame_loader import ArraySequence
+    from occlusionfusion_tpu_torch.geometry.camera import Intrinsics
+
+    intr = Intrinsics(2.3 * w, 2.3 * w, w / 2, h / 2)
+    v, u = np.mgrid[0:h, 0:w].astype(np.float32)
+    d = np.stack([(u - intr.cx) / intr.fx, (v - intr.cy) / intr.fy,
+                  np.ones_like(u)], -1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    sec = KEYFRAME_SECOND
+    depths, centers = [], []
+    for i in range(n_frames):
+        c = np.array([0.0, 0.0, distance
+                      + STEP_Z * (KEYFRAME_TURN - abs(KEYFRAME_TURN - i))])
+        c2 = np.array([max(sec["x_stop"], sec["x0"] + sec["dx"] * i), 0.0,
+                       c[2]])
+        best = np.full((h, w), np.inf)
+        for ci, axes in ((c, KEYFRAME_AXES), (c2, (sec["radius"],) * 3)):
+            # |(t d - c) / axes| = 1, the nearest root
+            ds, cs = d / np.asarray(axes), ci / np.asarray(axes)
+            a = np.sum(ds * ds, -1)
+            b = ds @ cs
+            disc = b * b - a * (cs @ cs - 1.0)
+            t = (b - np.sqrt(np.maximum(disc, 0))) / a
+            best = np.where((disc > 0) & (t > 0) & (t < best), t, best)
+        depths.append(np.where(np.isfinite(best), best * d[..., 2], 0.0)
+                      .astype(np.float32))
+        centers.append(c)
+    colors = [np.full((h, w, 3), 128.0, np.float32)] * n_frames
+    return ArraySequence(colors, depths, intr), centers
+
+
+def keyframe_config(stepwise=False, **kw):
+    """The JAX FusionConfig defaults (N-ICP with 100 iterations, the
+    motion GNN, bricks of 8 in 2048 slots over 128^3 at 5 mm, node
+    coverage 0.05 m, a 512-node cap, 8192 points) with the keyframe
+    phases' intervals."""
+    from occlusionfusion_tpu_torch.fusion.pipeline import FusionConfig
+
+    if stepwise:
+        kw = {**KEYFRAME_STEPWISE, **kw}
+    else:
+        kw = dict(growth_interval=KEYFRAME_GROWTH,
+                  keyframe_interval=KEYFRAME_INTERVAL, **kw)
+    cfg = FusionConfig(**kw)
+    assert (cfg.solver, cfg.nicp.iters, cfg.vol_dim, cfg.max_nodes) == (
+        "nicp", NICP_ITERS, (VOL,) * 3, MAX_NODES)
+    return cfg
+
+
+def main_node_median(nodes, translations, n, center):
+    """The median translation of the nodes within KEYFRAME_MAIN_RADIUS
+    (in units of KEYFRAME_AXES) of the ellipsoid's centre (canonical
+    space)."""
+    import numpy as np
+
+    g = nodes[:n]
+    main = np.linalg.norm((g - np.asarray(center)) / np.asarray(
+        KEYFRAME_AXES), axis=1) < KEYFRAME_MAIN_RADIUS
+    return np.median(translations[:n][main], axis=0), int(main.sum())
 
 
 def check_against_reference(med_z, infos, ref_z, ref_corr):
@@ -2634,7 +3022,11 @@ def phase_stepwise(dev):
 
     def timed(frame, motion_net=None):
         t = time.perf_counter()
-        info = register(frame, motion_net)
+        if frame.index == KEYFRAME_RESUME_CHECK_FRAME:
+            with tap:
+                info = register(frame, motion_net)
+        else:
+            info = register(frame, motion_net)
         times.append(time.perf_counter() - t)
         return info
 
@@ -2672,6 +3064,663 @@ def phase_stepwise(dev):
     finally:
         emit(out)
     return counts, tap.call
+
+
+def rotation_angle(Ra, Rb):
+    """The angle (rad) of Ra^T Rb."""
+    import numpy as np
+
+    c = (np.trace(np.asarray(Ra).T @ np.asarray(Rb)) - 1.0) / 2.0
+    return float(np.arccos(np.clip(c, -1.0, 1.0)))
+
+
+def check_keyframe_reference(out, infos, ref, exact_until):
+    """The keyframe phases' checks against the JAX package's run (ref).
+    Up to frame ``exact_until`` (the first growth's, and in the stepwise
+    loop its keyframes' loop closures), as JAX: each growth's new nodes
+    and bricks equal, the correspondences within NICP_CORRESPONDENCE_TOL,
+    the loop closures equal, the keyframe poses within 1 mm and 1e-3 rad
+    (fused only). Later the grown nodes, which no model point anchors,
+    make the run chaotic on the card itself (ROADMAP F12): each growth's
+    counts, the node and brick counts, the main nodes' median translation
+    and the correspondences within KEYFRAME_SPREAD_LIMITS of JAX's, limits
+    three times the largest gap between the card's own runs."""
+    import numpy as np
+
+    lim = KEYFRAME_SPREAD_LIMITS[out["phase"]]
+    assert all(i["solve_valid"] for i in infos), infos
+    keys = ("frame", "n_new_nodes", "n_new_bricks")
+    got = [tuple(g[k] for k in keys) for g in out["growth"]]
+    want = [tuple(g[k] for k in keys) for g in ref["growth"]]
+    assert [g[0] for g in got] == [g[0] for g in want], (got, want)
+    assert any(g[1] for g in got) and any(g[2] for g in got), got
+    for g, w in zip(got, want):
+        tol = (0, 0) if g[0] <= exact_until else (lim["growth_nodes"],
+                                                  lim["growth_bricks"])
+        assert abs(g[1] - w[1]) <= tol[0] and abs(g[2] - w[2]) <= tol[1], (
+            got, want)
+    assert abs(out["nodes"] - ref["nodes"]) <= lim["nodes"]
+    assert abs(out["active_bricks"] - ref["active_bricks"]) <= lim[
+        "active_bricks"]
+    corr = np.asarray([i["n_correspondences"] for i in infos])
+    rel = np.abs(corr - ref["n_correspondences"]) / np.asarray(
+        ref["n_correspondences"])
+    frames = np.asarray([i["frame"] for i in infos])
+    early = frames <= exact_until
+    assert rel[early].max() <= NICP_CORRESPONDENCE_TOL, rel
+    assert rel[~early].max() <= lim["correspondences"], rel
+    dm = np.abs(np.asarray(out["main_median_translation"])
+                - ref["main_median_translation"])
+    assert dm.max() <= lim["main_median_m"], dm
+    traj = ref["trajectory"]
+    assert out["trajectory"]["frames"] == traj["frames"]
+    loops = [(k["frame"], k["loop_closures"]) for k in out["keyframes"]]
+    want_loops = [(k["frame"], k["loop_closures"]) for k in ref["keyframes"]]
+    assert [x for x in loops if x[0] <= exact_until] == [
+        x for x in want_loops if x[0] <= exact_until], (loops, want_loops)
+    if out["phase"] == "keyframe_path":
+        for f, Ra, Rb, ta, tb in zip(traj["frames"], out["trajectory"]["R"],
+                                     traj["R"], out["trajectory"]["t"],
+                                     traj["t"]):
+            if f <= exact_until:
+                assert rotation_angle(Ra, Rb) <= 1e-3, f
+                assert np.abs(np.asarray(ta) - tb).max() <= 1e-3, f
+
+
+def keyframe_outcome(fusion, infos, centers):
+    """The keyframe phases' readings of a run."""
+    import numpy as np
+
+    n = fusion.node_count
+    med, n_main = main_node_median(fusion.nodes.cpu().numpy(),
+                                   fusion.warp.translations.cpu().numpy(),
+                                   n, centers[0])
+    ids, R, t = fusion.trajectory()
+    return {
+        "nodes": n, "main_nodes": n_main,
+        "active_bricks": int((fusion.brick_ids >= 0).sum()),
+        "main_median_translation": med.tolist(),
+        "trajectory": {"frames": ids.tolist(), "R": R.tolist(),
+                       "t": t.tolist()},
+        "keyframes": [{k: i[k] for k in ("frame", "pose_correction",
+                                         "loop_closures",
+                                         "reloc_feat_matches")}
+                      for i in infos if "loop_closures" in i],
+        "n_correspondences": [i["n_correspondences"] for i in infos],
+    }
+
+
+def label_growth(fusion, tap):
+    """Label the k-NN calls of ``fusion``'s growth keyframes in ``tap``:
+    the refresh's (brick centres, voxel slots) and the growth's (voxel
+    slots, model points), each with its frame; and record each refresh's
+    new bricks in the returned list."""
+    refreshes = []
+    refresh, grow = fusion._refresh_bricks, fusion._grow
+
+    def labelled_refresh(frame):
+        tap.label = f"refresh_frame_{frame.index}"
+        n = refresh(frame)
+        refreshes.append({"frame": frame.index, "n_new_bricks": n})
+        tap.label = f"growth_frame_{frame.index}"
+        return n
+
+    def labelled_grow(frame):
+        tap.label = f"growth_frame_{frame.index}"
+        try:
+            return grow(frame)
+        finally:
+            tap.label = "after_growth"
+
+    fusion._refresh_bricks = labelled_refresh
+    fusion._grow = labelled_grow
+    return refreshes
+
+
+def phase_keyframe_path(dev, checks=True):
+    """The N-ICP path's settings with growth and keyframes every 16th
+    frame (keyframe_config) on keyframe_sequence through
+    run_fused(chunk=16) over KEYFRAME_FRAMES frames and
+    get_deformed_mesh, the launch counts set to 0 just before and read
+    just after, held to the JAX package's run (KEYFRAME_REFERENCE,
+    check_keyframe_reference); K1's inputs kept for every call (the
+    initialize, each refresh and growth, the mesh) and K2's of the last
+    step outside a capture (the warm-up of the graph captured on the
+    grown tables). Prints frames/s, each growth keyframe's host seconds
+    and its recapture's, initialize seconds and peak memory. Returns the
+    launch counts and the kernel rows on these inputs (none, and no
+    check, without ``checks``)."""
+    import numpy as np
+    import torch
+
+    from occlusionfusion_tpu_torch import device as D
+    from occlusionfusion_tpu_torch.fusion.pipeline import DynamicFusion
+    from occlusionfusion_tpu_torch.models.checkpoint import (
+        load_motion_complete_net,
+    )
+
+    seq, centers = keyframe_sequence()
+    net = load_motion_complete_net(device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fusion = DynamicFusion(seq, keyframe_config(), device=dev)
+    init = fusion.initialize
+    init_s = []
+
+    def timed_init(frame):
+        t = time.perf_counter()
+        init(frame)
+        torch.cuda.synchronize()
+        init_s.append(time.perf_counter() - t)
+
+    fusion.initialize = timed_init
+    D.reset_launch_counts()
+    t0 = time.perf_counter()
+    with KernelInputTap(None, keep_all=True) as ktap:
+        ktap.label = "initialize"
+        refreshes = label_growth(fusion, ktap)
+        infos = fusion.run_fused(chunk=CHUNK, motion_net=net)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        ktap.label = "get_deformed_mesh"
+        verts, faces = fusion.get_deformed_mesh()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(D.launch_counts)
+    growth = [{k: g[k] for k in ("frame", "n_new_nodes", "n_new_bricks",
+                                 "grow_s", "rebuild_s", "capture_s")}
+              for g in fusion.growth_log]
+    assert [g["n_new_bricks"] for g in growth] == [
+        r["n_new_bricks"] for r in refreshes]
+    out = {"phase": "keyframe_path", "wall_s": wall, "frames": len(infos),
+           "initialize_s": init_s[0],
+           "frames_per_s": len(infos) / (run_s - init_s[0]),
+           "growth": growth, "graphs_kept": len(fusion.graphs),
+           "mesh_vertices": int(verts.shape[0]),
+           **keyframe_outcome(fusion, infos, centers),
+           "reference": {k: KEYFRAME_REFERENCE[k] for k in (
+               "growth", "nodes", "active_bricks",
+               "main_median_translation")},
+           "final_loss": [i["final_loss"] for i in infos],
+           "launches": counts,
+           "peak_mem_bytes": int(torch.cuda.max_memory_allocated())}
+    if not checks:
+        emit(out)
+        return counts, []
+    rows = [knn_row(f"keyframe_path_{label}_P{P}", q, refs, valid)[0]
+            for label, P, (q, refs, _, valid) in ktap.calls
+            if label not in ("initialize", "get_deformed_mesh")]
+    rows.append(lbs_row("keyframe_path_grown_table_warmup", *ktap.lbs))
+    try:
+        check_keyframe_reference(out, infos, KEYFRAME_REFERENCE,
+                                 KEYFRAME_GROWTH)
+        assert np.isfinite(verts).all() and faces.shape[0] > 0
+        assert not fusion.track_lost
+        # K1: initialize (slots, points), each refresh (brick centres;
+        # the slots where it added bricks), each growth that added nodes
+        # (slots, points) and the mesh; K2: every replayed frame and the
+        # warm-up step of each graph (one per table set: a rebuild takes
+        # a new graph, and the old one is dropped)
+        rebuilds = sum(1 for g in growth[:-1]
+                       if g["n_new_nodes"] or g["n_new_bricks"])
+        n_knn = 3 + sum(1 + (g["n_new_bricks"] > 0)
+                        + 2 * (g["n_new_nodes"] > 0) for g in growth)
+        assert counts == {"knn": n_knn, "lbs_warp": len(infos) + 1
+                          + rebuilds, "point_term_blocks": 0,
+                          "arap_term_blocks": 0}, counts
+        # the graph of each table set is dropped at the next rebuild:
+        # none is left after a rebuild at the last frame
+        assert len(fusion.graphs) == int(not (
+            growth[-1]["n_new_nodes"] or growth[-1]["n_new_bricks"])), (
+            len(fusion.graphs))
+        assert len(ktap.calls) == n_knn
+        assert rows[-1]["N"] == MAX_NODES
+    finally:
+        emit(out)
+    del ktap, fusion
+    torch.cuda.empty_cache()
+    return counts, rows
+
+
+def map_tensors(tree, fn):
+    """``tree`` (tuples, NamedTuples, lists, dicts) with ``fn`` applied
+    to every tensor leaf; other leaves kept as they are."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_tensors(x, fn) for x in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tensors(x, fn) for x in tree)
+    if isinstance(tree, dict):
+        return {k: map_tensors(v, fn) for k, v in tree.items()}
+    return tree
+
+
+def tree_differences(a, b, path="args"):
+    """The paths at which two argument trees differ: tensors by dtype,
+    shape and every bit, NamedTuples field by field, networks (objects
+    with parameters) by identity, other leaves by ==."""
+    import torch
+
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        same = (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a, b))
+        return [] if same else [path]
+    if type(a) is not type(b):
+        return [path]
+    if isinstance(a, tuple) and hasattr(a, "_fields"):
+        return [d for f in a._fields for d in tree_differences(
+            getattr(a, f), getattr(b, f), f"{path}.{f}")]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return [path]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in tree_differences(x, y, f"{path}[{i}]")]
+    if isinstance(a, dict):
+        if sorted(a) != sorted(b):
+            return [path]
+        return [d for k in a for d in tree_differences(a[k], b[k],
+                                                       f"{path}.{k}")]
+    if hasattr(a, "parameters"):
+        return [] if a is b else [path]
+    return [] if a == b else [path]
+
+
+class StepArgumentTap:
+    """While entered, record (cloned) the arguments of every call the
+    stepwise loop makes to the fused step (``pipeline.fused_register_
+    frame``), so that a resumed run's step can be compared with the
+    uninterrupted run's and replayed."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from occlusionfusion_tpu_torch.fusion import pipeline
+
+        self._step = pipeline.fused_register_frame
+
+        def tapped(*args, **kwargs):
+            self.calls.append(map_tensors((args, kwargs),
+                                          lambda t: t.clone()))
+            return self._step(*args, **kwargs)
+
+        pipeline.fused_register_frame = tapped
+        return self
+
+    def __exit__(self, *exc):
+        from occlusionfusion_tpu_torch.fusion import pipeline
+
+        pipeline.fused_register_frame = self._step
+
+
+def deterministic_step(call):
+    """Run the fused step once more on a copy of recorded arguments with
+    torch's deterministic algorithms (the scatter-adds of N-ICP's backward
+    in a fixed order) -> ((rotations, translations, tsdf), the messages of
+    the ops that have no deterministic version)."""
+    import warnings
+
+    import torch
+
+    from occlusionfusion_tpu_torch.fusion.fused_step import (
+        fused_register_frame,
+    )
+
+    args, kwargs = map_tensors(call, lambda t: t.clone())
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            state, _ = fused_register_frame(*args, **kwargs)
+            if state.rotations.is_cuda:
+                torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(before)
+    return ((state.rotations, state.translations, state.tsdf.tsdf),
+            sorted({str(w.message).split("\n")[0][:160] for w in caught}))
+
+
+def keyframe_case_quantize(flat):
+    """A save_state snapshot's flat arrays -> the growth case's ``in/``
+    arrays: the TSDF as int16 (KEYFRAME_CASE_TSDF_Q), the weights and
+    colours (whole numbers: frame counts, and the flat grey's 128 or 0)
+    as uint16, everything else as it is."""
+    import numpy as np
+
+    case = {}
+    for k, v in flat.items():
+        v = np.asarray(v)
+        if k == "tsdf/tsdf":
+            case["in/tsdf/tsdf_q"] = np.round(
+                v * KEYFRAME_CASE_TSDF_Q).astype(np.int16)
+        elif k in ("tsdf/weight", "tsdf/color"):
+            assert np.array_equal(v, np.round(v)) and 0 <= v.min() and (
+                v.max() < 65536), k
+            case[f"in/{k}_u16"] = v.astype(np.uint16)
+        else:
+            case[f"in/{k}"] = v
+    return case
+
+
+def keyframe_case_snapshot(case, path):
+    """Write the growth case's input (``in/`` arrays of
+    keyframe_case_quantize, dequantized) as a save_state snapshot at
+    ``path``, which either package's load_state reads."""
+    import numpy as np
+
+    flat = {}
+    for key in case:
+        if not key.startswith("in/"):
+            continue
+        v, k = np.asarray(case[key]), key[3:]
+        if k == "tsdf/tsdf_q":
+            flat["tsdf/tsdf"] = (v.astype(np.float32)
+                                 / np.float32(KEYFRAME_CASE_TSDF_Q))
+        elif k.endswith("_u16"):
+            flat[k[:-4]] = v.astype(np.float32)
+        else:
+            flat[k] = v
+    np.savez(path, **flat)
+
+
+def node_gaps(a, b, n):
+    """The median node's translation gap (largest axis of the medians'
+    difference), the STEP_PERCENTILE-th percentile of the node translation
+    and rotation gaps and the largest translation gap between two
+    (rotations, translations) pairs over the first ``n`` nodes."""
+    import numpy as np
+
+    Ra, ta = (np.asarray(x.cpu() if hasattr(x, "cpu") else x)[:n]
+              for x in a)
+    Rb, tb = (np.asarray(x.cpu() if hasattr(x, "cpu") else x)[:n]
+              for x in b)
+    dt = np.linalg.norm(ta - tb, axis=1)
+    dR = np.abs(Ra - Rb).reshape(n, -1).max(1)
+    return {"median_dt_m": float(np.abs(np.median(ta, 0)
+                                        - np.median(tb, 0)).max()),
+            "p_dt_m": float(np.percentile(dt, STEP_PERCENTILE)),
+            "p_dR": float(np.percentile(dR, STEP_PERCENTILE)),
+            "max_dt_m": float(dt.max())}
+
+
+def phase_keyframe_growth_case(dev, checks=True):
+    """keyframe_path's growth keyframe at KEYFRAME_CASE_FRAME on exactly
+    the JAX package's input (KEYFRAME_CASE_NPZ): load_state of that
+    state, the growth (refresh + grow), then the next frame through
+    run_fused's engine on the rebuilt tables (a graph captured there and
+    replayed twice from the same state, and one eager step), held to
+    JAX's results on that input (see KEYFRAME_CASE_FRAME). Without
+    ``checks`` the readings only."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from occlusionfusion_tpu_torch.fusion.fused_step import (
+        fused_register_chunk,
+        lepard_gate,
+    )
+    from occlusionfusion_tpu_torch.fusion.pipeline import DynamicFusion
+    from occlusionfusion_tpu_torch.models.checkpoint import (
+        load_motion_complete_net,
+    )
+
+    case = np.load(KEYFRAME_CASE_NPZ)
+    frame = KEYFRAME_CASE_FRAME
+    seq, _ = keyframe_sequence(frame + 2)
+    net = load_motion_complete_net(device=dev)
+    fusion = DynamicFusion(seq, keyframe_config(), device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "case.npz")
+        keyframe_case_snapshot(case, path)
+        fusion.load_state(path)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    n_new = fusion._grow(seq.load(frame))
+    torch.cuda.synchronize()
+    grow_s = time.perf_counter() - t
+    n = fusion.node_count
+    ref = {k[4:]: case[k] for k in case.files if k.startswith("out/")}
+    out = {"phase": "keyframe_growth_case", "frame": frame,
+           "grow_s": grow_s,
+           "n_new_nodes": [n_new, int(ref["n_new_nodes"])],
+           "n_new_bricks": [fusion.n_new_bricks, int(ref["n_new_bricks"])],
+           "node_count": [n, int(ref["node_count"])]}
+    same_table = (np.array_equal(fusion.brick_ids, ref["brick_ids"])
+                  and n == int(ref["node_count"]))
+    out["brick_ids_equal"] = bool(np.array_equal(fusion.brick_ids,
+                                                 ref["brick_ids"]))
+    if same_table:
+        out["edges_equal"] = bool(np.array_equal(
+            fusion.edges.cpu().numpy()[:n], ref["edges"][:n]))
+        out["nodes_max_m"] = float(np.abs(
+            fusion.nodes.cpu().numpy()[:n] - ref["nodes"][:n]).max())
+        out["edge_weights_max"] = float(np.abs(
+            fusion.edge_weights.cpu().numpy()[:n]
+            - ref["edge_weights"][:n]).max())
+        out["grown"] = node_gaps(
+            (fusion.warp.rotations, fusion.warp.translations),
+            (ref["grown_rotations"], ref["grown_translations"]), n)
+    # the next frame on the rebuilt tables, from the carried history
+    sc, state, tables = fusion.build_fused(net)
+    state = state._replace(motion=fusion._resume_motion)
+    nxt = seq.load(frame + 1)
+    depths = torch.as_tensor(nxt.depth, device=dev)[None]
+    colors = torch.as_tensor(nxt.color, device=dev)[None]
+    graphs, steps = {}, []
+    t = time.perf_counter()
+    for _ in range(2):
+        s, info = fused_register_chunk(
+            sc, state, tables, net, depths, colors, fusion.intr,
+            *fusion._perception(), graphs=graphs,
+            lepard_on=lepard_gate(sc, [frame + 1]))
+        steps.append(((s.rotations.clone(), s.translations.clone()),
+                      info[0].cpu().numpy()))
+        if len(steps) == 1:
+            torch.cuda.synchronize()
+            out["capture_and_step_s"] = time.perf_counter() - t
+    s, info = fusion.register_frame_fused(sc, state, tables, nxt, net)
+    eager = ((s.rotations, s.translations), info.cpu().numpy())
+    (graph_rt, graph_info), (again_rt, _) = steps
+    out["n_correspondences"] = [int(graph_info[1]), int(eager[1][1]),
+                                int(ref["step_info"][1])]
+    out["step"] = node_gaps(graph_rt, (ref["step_rotations"],
+                                       ref["step_translations"]), n)
+    out["step_graph_vs_graph"] = node_gaps(graph_rt, again_rt, n)
+    out["step_graph_vs_eager"] = node_gaps(graph_rt, eager[0], n)
+    del graphs, state, tables, fusion
+    torch.cuda.empty_cache()
+    emit(out)
+    if not checks:
+        return
+    assert out["n_new_nodes"][0] == out["n_new_nodes"][1] > 0, out
+    assert out["n_new_bricks"][0] == out["n_new_bricks"][1], out
+    assert same_table and out["edges_equal"], out
+    assert out["nodes_max_m"] <= KEYFRAME_CASE_NODE_TOL, out
+    assert out["edge_weights_max"] <= KEYFRAME_CASE_NODE_TOL, out
+    assert out["grown"]["max_dt_m"] <= KEYFRAME_CASE_NODE_TOL, out
+    got, ref_corr = out["n_correspondences"][0], out["n_correspondences"][2]
+    assert abs(got - ref_corr) <= NICP_CORRESPONDENCE_TOL * ref_corr, out
+    spread = {k: max(out["step_graph_vs_graph"][k],
+                     out["step_graph_vs_eager"][k])
+              for k in ("median_dt_m", "p_dt_m", "p_dR")}
+    lim = {"median_dt_m": STEP_MEDIAN_LIMIT,
+           "p_dt_m": STEP_PERCENTILE_LIMITS["dt_m"],
+           "p_dR": STEP_PERCENTILE_LIMITS["dR"]}
+    assert all(out["step"][k] <= max(v, 3 * spread[k])
+               for k, v in lim.items()), (out["step"], spread)
+
+
+def phase_keyframe_stepwise(dev, checks=True):
+    """keyframe_sequence through the stepwise loop (DynamicFusion.run over
+    KEYFRAME_STEPWISE_FRAMES frames, keyframes every 2nd and growth every
+    8th frame), the launch counts set to 0 just before and read just
+    after, with a rigid KEYFRAME_DRIFT offset left-composed into the warp
+    before the keyframe work of frame KEYFRAME_DRIFT_FRAME and a
+    save_state at frame KEYFRAME_SAVE_FRAME; held to the JAX package's
+    run (KEYFRAME_STEPWISE_REFERENCE): at least one loop closure, the
+    drift's correction above 1e-3 and within 1e-3 of JAX's, the model's
+    error after it below 0.35x the error before, and
+    check_keyframe_reference's checks (exact up to frame
+    KEYFRAME_STEPWISE_EXACT). Then the snapshot is loaded into two fresh
+    objects, each of which runs on to frame KEYFRAME_RESUME_CHECK_FRAME:
+    the fused step of that frame must get the uninterrupted run's
+    arguments bit for bit (StepArgumentTap, tree_differences), and run
+    again with torch's deterministic algorithms (deterministic_step) the
+    uninterrupted run's step must repeat itself and equal the resumed
+    one bit for bit, with no op lacking a deterministic version. The
+    gaps of the runs as they ran are printed. Without ``checks`` the
+    readings only."""
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+
+    from occlusionfusion_tpu_torch import device as D
+    from occlusionfusion_tpu_torch.fusion import warpfield as W
+    from occlusionfusion_tpu_torch.fusion.pipeline import DynamicFusion
+    from occlusionfusion_tpu_torch.models.checkpoint import (
+        load_motion_complete_net,
+    )
+
+    seq, centers = keyframe_sequence(KEYFRAME_STEPWISE_FRAMES + 1)
+    net = load_motion_complete_net(device=dev)
+    cfg = keyframe_config(stepwise=True)
+    fusion = DynamicFusion(seq, cfg, device=dev)
+
+    def centroid():
+        pts = W.deform_points(fusion.warp, fusion.model_points,
+                              fusion.point_table)
+        valid = fusion.model_valid & fusion.point_table.valid
+        return pts[valid].mean(0).cpu().numpy()
+
+    drift, record = {}, fusion._record_keyframe
+
+    def drifted(frame):
+        if frame.index == KEYFRAME_DRIFT_FRAME:
+            drift["true"] = centroid()
+            fusion.warp = W.left_compose_rigid(
+                fusion.warp, torch.eye(3, device=fusion.device),
+                torch.tensor(KEYFRAME_DRIFT, device=fusion.device))
+            drift["before"] = float(np.linalg.norm(centroid()
+                                                   - drift["true"]))
+        return record(frame)
+
+    fusion._record_keyframe = drifted
+    refreshes = label_growth(fusion, types.SimpleNamespace(label=""))
+    tmp = tempfile.TemporaryDirectory()
+    snapshot = os.path.join(tmp.name, "state.npz")
+    times, register, uninterrupted = [], fusion.register_frame, []
+    tap = StepArgumentTap()
+
+    def timed(frame, motion_net=None):
+        t = time.perf_counter()
+        if frame.index == KEYFRAME_RESUME_CHECK_FRAME:
+            with tap:
+                info = register(frame, motion_net)
+        else:
+            info = register(frame, motion_net)
+        times.append(time.perf_counter() - t)
+        if frame.index == KEYFRAME_DRIFT_FRAME:
+            drift["after"] = float(np.linalg.norm(centroid()
+                                                  - drift.pop("true")))
+            drift["pose_correction"] = info["pose_correction"]
+        if frame.index == KEYFRAME_SAVE_FRAME:
+            fusion.save_state(snapshot)
+        if frame.index == KEYFRAME_RESUME_CHECK_FRAME:
+            uninterrupted.append(fusion.warp)
+        return info
+
+    fusion.register_frame = timed
+    torch.cuda.synchronize()
+    D.reset_launch_counts()
+    t0 = time.perf_counter()
+    infos = fusion.run(motion_net=net)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(D.launch_counts)
+    ref = KEYFRAME_STEPWISE_REFERENCE
+    growth = [{"frame": i["frame"], "n_new_nodes": i["n_new_nodes"],
+               "n_new_bricks": r["n_new_bricks"]}
+              for i, r in zip([i for i in infos if i["frame"]
+                               % KEYFRAME_STEPWISE["growth_interval"] == 0],
+                              refreshes)]
+    out = {"phase": "keyframe_stepwise", "wall_s": wall,
+           "frames": len(infos), "initialize_s": wall - sum(times),
+           "frames_per_s": len(infos) / sum(times),
+           "drift": drift, "reference_drift": ref["drift"],
+           "growth": growth, **keyframe_outcome(fusion, infos, centers),
+           "launches": counts}
+    # the snapshot resumed twice, against the uninterrupted run
+    resumed = []
+    for _ in range(2):
+        f = DynamicFusion(seq, cfg, device=dev)
+        f.load_state(snapshot)
+        with tap:
+            for i in range(KEYFRAME_SAVE_FRAME + 1,
+                           KEYFRAME_RESUME_CHECK_FRAME + 1):
+                f.register_frame(seq.load(i), net)
+        resumed.append(f)
+    # the fused step's arguments at the checked frame: the uninterrupted
+    # run's, then each resumed run's
+    assert len(tap.calls) == 3, len(tap.calls)
+    out["resume_arguments"] = [tree_differences(tap.calls[0], c)
+                               for c in tap.calls[1:]]
+    # the step once more on each recorded argument set (the uninterrupted
+    # run's twice) with torch's deterministic algorithms
+    det, caught = zip(*(deterministic_step(c)
+                        for c in (tap.calls[0], tap.calls[0], tap.calls[1])))
+    out["deterministic_nondeterministic_ops"] = sorted(set(sum(caught, [])))
+    out["deterministic_repeat_max"] = [float((a - b).abs().max())
+                                       for a, b in zip(det[0], det[1])]
+    out["deterministic_resume_max"] = [float((a - b).abs().max())
+                                       for a, b in zip(det[0], det[2])]
+    del tap.calls[:], det
+    # the gaps of the runs as they ran (the atomics' order; printed), on
+    # the nodes of initialize, which the model points anchor, and on all
+    n, n0 = resumed[0].node_count, fusion.node_count - sum(
+        g["n_new_nodes"] for g in growth)
+    out["resumed_nodes"] = [f.node_count for f in resumed]
+    base, r0, r1 = ((w.rotations, w.translations) for w in (
+        uninterrupted[0], resumed[0].warp, resumed[1].warp))
+    out["resume_gap"] = node_gaps(r0, base, n0)
+    out["resume_witness"] = node_gaps(r0, r1, n0)
+    out["resume_gap_all_nodes"] = node_gaps(r0, base, n)
+    if not checks:
+        emit(out)
+        tmp.cleanup()
+        return counts
+    try:
+        check_keyframe_reference(out, infos, ref, KEYFRAME_STEPWISE_EXACT)
+        assert not fusion.track_lost
+        assert sum(k["loop_closures"] for k in out["keyframes"]) >= 1
+        pc = drift["pose_correction"]
+        assert pc > 1e-3 and abs(pc - ref["drift"]["pose_correction"]) <= (
+            1e-3), (pc, ref["drift"])
+        assert drift["after"] < 0.35 * drift["before"], drift
+        assert out["resume_arguments"] == [[], []], out["resume_arguments"]
+        assert not out["deterministic_nondeterministic_ops"], out
+        assert out["deterministic_repeat_max"] == [0.0] * 3, out
+        assert out["deterministic_resume_max"] == [0.0] * 3, out
+        # K1: initialize, then each growth keyframe's refresh and growth
+        # as in keyframe_path; K2 once a frame
+        n_knn = 2 + sum(1 + (g["n_new_bricks"] > 0)
+                        + 2 * (g["n_new_nodes"] > 0) for g in growth)
+        assert counts == {"knn": n_knn, "lbs_warp": len(infos),
+                          "point_term_blocks": 0,
+                          "arap_term_blocks": 0}, counts
+    finally:
+        emit(out)
+        tmp.cleanup()
+    del fusion, resumed
+    torch.cuda.empty_cache()
+    return counts
 
 
 def phase_nicp_solve(call):
@@ -2831,6 +3880,18 @@ def gn_compare(trees, ptxas=False):
             raise RuntimeError(f"gn profile of {tree} failed")
 
 
+def keyframe_spread(runs, dev="cuda"):
+    """The keyframe phases ``runs`` times each without their JAX checks
+    and kernel rows: each run prints its readings (growth, counts, the
+    main nodes' median, correspondences, the resume gap)."""
+    for phase in (phase_keyframe_path, phase_keyframe_stepwise):
+        for run in range(runs):
+            t = time.perf_counter()
+            phase(dev, checks=False)
+            emit({"spread_run": run, "phase": phase.__name__,
+                  "s": time.perf_counter() - t})
+
+
 def main(argv) -> int:
     t_all = time.perf_counter()
     import torch
@@ -2853,6 +3914,10 @@ def main(argv) -> int:
         print(nvidia_smi_line(), flush=True)
         gn_compare([a for a in argv[argv.index("--gn-compare") + 1:]
                     if not a.startswith("--")], ptxas="--ptxas" in argv)
+        return 0
+    if "--keyframe-spread" in argv:
+        print(nvidia_smi_line(), flush=True)
+        keyframe_spread(int(argv[argv.index("--keyframe-spread") + 1]))
         return 0
     from occlusionfusion_tpu_torch import device as D
 
@@ -2970,6 +4035,27 @@ def main(argv) -> int:
     t = time.perf_counter()
     phase_parity(dev, ("nicp",))
     emit({"phase": "parity_nicp_done", "s": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    counts, kf_rows = phase_keyframe_path(dev)
+    for row in kf_rows:
+        row["launches"] = counts[row["name"]]
+        emit({"phase": "kernel", **row})
+    rows += kf_rows
+    emit({"phase": "keyframe_path_done", "s": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    phase_keyframe_growth_case(dev)
+    emit({"phase": "keyframe_growth_case_done",
+          "s": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    phase_keyframe_stepwise(dev)
+    emit({"phase": "keyframe_stepwise_done", "s": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    phase_parity(dev, ("keyframe", "recovery", "cluster"))
+    emit({"phase": "parity_keyframe_done", "s": time.perf_counter() - t})
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

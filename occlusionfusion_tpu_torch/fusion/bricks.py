@@ -3,16 +3,20 @@
 The virtual volume is cut into B^3-voxel bricks; a static-capacity slot
 table holds the active ones, so the TSDF state is [MB, B, B, B] instead
 of [X, Y, Z] and ``tsdf.integrate`` consumes its voxels raveled in C
-order. Activation is a host decision (numpy) at initialization: a brick
-is active when its box meets the truncation band of an observed depth
-point, dilated by ``BRICK_DILATE`` bricks.
+order. Activation is a host decision (numpy) at initialization and at
+growth keyframes: a brick is active when its box meets the truncation
+band of an observed depth point, dilated by ``dilate`` bricks (the
+``brick_dilate`` setting). A keyframe refresh carries the integrated data
+into the new slot layout with one device gather (``remap_slots``,
+``apply_remap``).
 
 Brick ids are linear indices into the virtual brick grid
 (``bx * GY * GZ + by * GZ + bz``); free slots carry id -1, their voxels
 are masked invalid, and their dummy positions sit at the volume origin.
 
-Everything here but ``create_brick_volume`` is host numpy code, copied
-from the JAX package so that the port never imports it.
+Everything here but ``create_brick_volume`` and ``apply_remap`` is host
+numpy code, copied from the JAX package so that the port never imports
+it.
 """
 
 from __future__ import annotations
@@ -24,11 +28,6 @@ import torch
 
 from occlusionfusion_tpu_torch.fusion.tsdf import TSDFState
 from occlusionfusion_tpu_torch.geometry.camera import Intrinsics
-
-# brick-neighbourhood steps added around the activated bricks (the JAX
-# package's default brick_dilate)
-BRICK_DILATE = 1
-
 
 class BrickGrid(NamedTuple):
     """Static brick-grid geometry."""
@@ -59,9 +58,10 @@ def active_bricks_from_points(
     origin: np.ndarray,
     points: np.ndarray,
     trunc: float,
+    dilate: int = 1,
 ) -> np.ndarray:
     """Sorted linear ids of bricks whose box meets the trunc-inflated box
-    of any of the given world points, dilated by ``BRICK_DILATE`` bricks
+    of any of the given world points, dilated by ``dilate`` bricks
     (6-neighbourhood per step)."""
     GX, GY, GZ = grid.grid_dim
     bs = grid.brick * grid.voxel_size
@@ -84,7 +84,7 @@ def active_bricks_from_points(
                     )
                     c = lo[sel] + np.asarray([dx, dy, dz])
                     occ[c[:, 0], c[:, 1], c[:, 2]] = True
-    for _ in range(BRICK_DILATE):
+    for _ in range(dilate):
         grown = occ.copy()
         grown[1:] |= occ[:-1]
         grown[:-1] |= occ[1:]
@@ -102,9 +102,10 @@ def active_bricks_from_depth(
     depth: np.ndarray,
     intr: Intrinsics,
     trunc: float,
+    dilate: int = 1,
 ) -> np.ndarray:
     return active_bricks_from_points(
-        grid, origin, _backproject_valid(depth, intr), trunc
+        grid, origin, _backproject_valid(depth, intr), trunc, dilate
     )
 
 
@@ -180,3 +181,31 @@ def scatter_to_dense(
     x, y, z = grid.vol_dim
     return tsdf[:x, :y, :z], weight[:x, :y, :z]
 
+
+def remap_slots(old_ids: np.ndarray, new_ids: np.ndarray) -> np.ndarray:
+    """[MB] int32: for each new slot, the old slot holding the same brick,
+    or -1 for a freshly activated or free one."""
+    lookup = {int(b): i for i, b in enumerate(np.asarray(old_ids)) if b >= 0}
+    out = -np.ones(len(new_ids), np.int32)
+    for i, b in enumerate(np.asarray(new_ids)):
+        if b >= 0 and int(b) in lookup:
+            out[i] = lookup[int(b)]
+    return out
+
+
+def apply_remap(state: TSDFState, perm: np.ndarray) -> TSDFState:
+    """The brick data carried into the new slot layout ``perm``
+    (``remap_slots``) by one device gather; fresh slots reset to tsdf 1,
+    weight 0 and colour 0."""
+    dev = state.tsdf.device
+    perm_t = torch.as_tensor(np.asarray(perm, np.int64), device=dev)
+    fresh = (perm_t < 0)[:, None, None, None]
+    safe = torch.clamp(perm_t, min=0)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return TSDFState(
+        tsdf=torch.where(fresh, one, state.tsdf[safe]),
+        weight=torch.where(fresh, zero, state.weight[safe]),
+        color=torch.where(fresh[..., None], zero, state.color[safe]),
+        origin=state.origin,
+    )

@@ -1,4 +1,5 @@
-"""Projective data association and per-node motion observations (port of
+"""Projective data association, per-node motion observations and the
+freezing of match-starved graph components (port of
 ``occlusionfusion_tpu/fusion/correspondence.py``)."""
 
 from __future__ import annotations
@@ -95,3 +96,31 @@ def node_motion_observations(
         torch.zeros_like(num),
     )
     return motion, observed
+
+
+def cluster_match_filter(
+    point_anchors,  # [P, K] node ids
+    point_weights,  # [P, K] skinning weights
+    corr_weight,  # [P] correspondence weights in [0, 1]
+    node_clusters,  # [N] component id per node (-1 padded)
+    node_valid,  # [N]
+    min_cluster_weight: float,
+):
+    """Freeze match-starved graph components: each match's skinning
+    weights summed onto its anchor nodes, reduced per connected
+    component; every node of a component below ``min_cluster_weight`` is
+    frozen, and the matches anchored to any frozen node are dropped.
+    Returns (node_solve_mask [N] bool, corr_weight' [P])."""
+    n = node_clusters.shape[0]
+    w = point_weights * corr_weight[:, None]
+    anchors = torch.clamp(point_anchors, min=0).long()
+    match_w_node = torch.zeros((n,), dtype=w.dtype, device=w.device)
+    match_w_node.index_add_(0, anchors.reshape(-1), w.reshape(-1))
+    match_w_node = match_w_node * node_valid.to(w.dtype)
+    cid = torch.clamp(node_clusters, 0, n - 1).long()
+    cluster_w = torch.zeros((n,), dtype=w.dtype, device=w.device)
+    cluster_w.index_add_(0, cid, match_w_node)
+    cluster_ok = cluster_w >= min_cluster_weight
+    node_ok = cluster_ok[cid] & node_valid & (node_clusters >= 0)
+    corr_ok = torch.all(node_ok[anchors], dim=1)
+    return node_ok, corr_weight * corr_ok.to(corr_weight.dtype)

@@ -26,7 +26,9 @@ nets at 1/N resolution; the sparse lift with optional bf16 nets and a
 dense lift), and the Lepard matcher on a deterministic subsample of the
 target depth, in the frames the host's cadence gate picks
 (``lepard_every``: the step takes ``run_lepard``, and a chunk graph holds
-the matcher in exactly the steps whose absolute frame index runs it).
+the matcher in exactly the steps whose absolute frame index runs it),
+and the freezing of match-starved graph components
+(``min_cluster_matches``, with the tables' ``node_clusters``).
 ``FusionConfig`` (``fusion/pipeline.py``) rejects the settings of the
 branches not ported.
 """
@@ -43,6 +45,7 @@ import torch.nn.functional as F
 from occlusionfusion_tpu_torch.fusion import tsdf as T
 from occlusionfusion_tpu_torch.fusion import warpfield as W
 from occlusionfusion_tpu_torch.fusion.correspondence import (
+    cluster_match_filter,
     depth_association_at_pixels,
     node_motion_observations,
     projective_correspondences,
@@ -91,6 +94,9 @@ class FusionTables(NamedTuple):
     edge_weights: torch.Tensor  # [N, K_e]
     pyramid_ints: torch.Tensor  # packed pyramid (motion_runner layout)
     n_nodes: torch.Tensor  # 0-d int32
+    # connected component of each node (-1 padded), for freezing
+    # match-starved components; None unless min_cluster_matches
+    node_clusters: torch.Tensor = None
 
 
 class FusionStepState(NamedTuple):
@@ -103,11 +109,6 @@ class FusionStepState(NamedTuple):
     prev_rgbxyz: torch.Tensor = None
 
 
-# MaskNet weight a flow correspondence must exceed (the JAX package's
-# default flow_mask_threshold)
-FLOW_MASK_THRESHOLD = 0.35
-
-
 class FusedStepConfig(NamedTuple):
     tsdf: T.TSDFConfig
     gn: GNConfig
@@ -117,8 +118,9 @@ class FusedStepConfig(NamedTuple):
     motion_levels: tuple = LEVEL_SIZES
     # PWC flow correspondences, weighted by MaskNet where a mask_net is
     # given (a flow target then needs a sampled weight above
-    # FLOW_MASK_THRESHOLD), else by their validity
+    # flow_mask_threshold), else by their validity
     use_flow: bool = False
+    flow_mask_threshold: float = 0.35
     # "fill": flow targets only for points without a projective target;
     # "override": flow targets wherever the flow's gate passes;
     # "advect": each projection advected by the flow, the target the
@@ -153,6 +155,10 @@ class FusedStepConfig(NamedTuple):
     # "gn_dense" (the gn config above)
     solver: str = "nicp"
     nicp: NICPConfig = NICPConfig(iters=100)
+    # freeze the graph components whose summed match weight is below
+    # this (0 = off; tables.node_clusters required): their nodes leave
+    # the dense solve and their matches drop out of either solve
+    min_cluster_matches: float = 0.0
 
 
 def _rgbxyz_image(depth, color, intr: Intrinsics):
@@ -234,7 +240,7 @@ def _flow_correspondences(config: FusedStepConfig, prev_rgbxyz, cur_rgbxyz,
         if mask_net is not None:
             wsamp = sample_weight_field(flow_weights, u, v, nms)
     if mask_net is not None:
-        ok = ok & (wsamp > FLOW_MASK_THRESHOLD)
+        ok = ok & (wsamp > config.flow_mask_threshold)
         w_flow = torch.clamp(wsamp, 0.0, 1.0)
     else:
         w_flow = torch.ones_like(u)
@@ -249,8 +255,8 @@ def _flow_correspondences(config: FusedStepConfig, prev_rgbxyz, cur_rgbxyz,
         gate = inb & front
         if mask_net is not None:
             thr = config.flow_advect_mask_threshold
-            gate = gate & (wsamp > (FLOW_MASK_THRESHOLD if thr is None
-                                    else thr))
+            gate = gate & (wsamp > (config.flow_mask_threshold
+                                    if thr is None else thr))
         if config.flow_advect_min_px > 0.0:
             gate = gate & (torch.linalg.vector_norm(uv2 - uv, dim=-1)
                            >= config.flow_advect_min_px)
@@ -295,6 +301,7 @@ def fused_register_frame(
     lepard_net=None,
     corr_depth: torch.Tensor | None = None,  # [H, W]
     run_lepard: bool = True,
+    init=None,
 ):
     """One frame. Returns (state, info [7] f32: final_loss,
     n_correspondences, n_visible_nodes, mean_conf, solve_valid,
@@ -306,7 +313,10 @@ def fused_register_frame(
     skipped frame launches none of the matcher's ops and counts 0
     matches). ``corr_depth``, where given, is the depth the projective
     association and advect's association read (the stepwise loop's, with
-    boundary pixels zeroed); everything else reads ``depth``."""
+    boundary pixels zeroed); everything else reads ``depth``. ``init``,
+    where given, is the (rotations, translations) the solve starts from
+    instead of the state's (the stepwise loop's first frame after a
+    growth, as the JAX stepwise loop warm-starts it)."""
     warp = W.WarpFieldState(
         node_positions=tables.nodes,
         node_valid=tables.node_valid,
@@ -359,6 +369,17 @@ def fused_register_frame(
         corr_valid = corr_valid | lmask
         corr_weight = torch.maximum(corr_weight, lmask.to(torch.float32))
 
+    # 2d. freeze match-starved graph components: their nodes keep their
+    # transforms in the dense solve and their matches drop out
+    solve_mask = tables.node_valid
+    if config.min_cluster_matches and tables.node_clusters is not None:
+        solve_mask, corr_weight = cluster_match_filter(
+            tables.point_anchors, tables.point_weights, corr_weight,
+            tables.node_clusters, tables.node_valid,
+            config.min_cluster_matches,
+        )
+        corr_valid = corr_valid & (corr_weight > 0)
+
     # 3. per-node motion observations
     node_motion, node_observed = node_motion_observations(
         deformed_pts, targets, corr_valid, tables.point_anchors,
@@ -381,6 +402,8 @@ def fused_register_frame(
         motion_conf = node_observed.to(torch.float32)
 
     # 5. warp solve, warm started at the current transforms
+    init_R, init_t = ((state.rotations, state.translations) if init is None
+                      else init)
     if config.solver == "nicp":
         idx = torch.arange(tables.model_points.shape[0],
                            device=tables.model_points.device)
@@ -399,8 +422,7 @@ def fused_register_frame(
             landmark_valid=corr_weight,
             motion_targets=motion_targets,
             motion_confidence=motion_conf,
-        ), config.nicp, init_rotations=state.rotations,
-            init_translations=state.translations)
+        ), config.nicp, init_rotations=init_R, init_translations=init_t)
         final_loss = result.final_loss
         solve_valid = torch.isfinite(final_loss)
     else:
@@ -416,9 +438,8 @@ def fused_register_frame(
             edge_weights=tables.edge_weights,
             motion_targets=motion_targets,
             motion_confidence=motion_conf,
-            solve_node_mask=tables.node_valid,
-        ), config.gn, init_rotations=state.rotations,
-            init_translations=state.translations)
+            solve_node_mask=solve_mask,
+        ), config.gn, init_rotations=init_R, init_translations=init_t)
         final_loss = result.residual_history[-1]
         solve_valid = result.valid
 

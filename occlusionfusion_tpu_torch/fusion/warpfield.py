@@ -76,3 +76,13 @@ def to_origin_form(state: WarpFieldState):
     g = state.node_positions
     Rg = torch.einsum("nij,nj->ni", state.rotations, g)
     return state.rotations, state.translations + g - Rg
+
+
+def left_compose_rigid(state: WarpFieldState, R, t) -> WarpFieldState:
+    """A global rigid (R [3, 3], t [3]) applied after the warp (pose-graph
+    re-anchoring): y = R_n (x - g) + g + t_n composes to R_n' = R R_n,
+    t_n' = R (g + t_n) + t - g."""
+    g = state.node_positions
+    new_R = torch.einsum("ij,njk->nik", R, state.rotations)
+    new_t = (g + state.translations) @ R.T + t - g
+    return state._replace(rotations=new_R, translations=new_t)

@@ -4,7 +4,9 @@ mesh route of ``occlusionfusion_tpu/graph/edgraph.py``).
 erode mesh -> greedy node sampling at node_coverage -> k=8 geodesic
 edges -> drop under-connected nodes -> connected components -> the
 4-level pyramid the motion-completion net consumes (coverage doubles per
-level, neighbour counts [8, 6, 4, 3]).
+level, neighbour counts [8, 6, 4, 3]). After graph growth the pyramid is
+rebuilt from the nodes alone with euclidean neighbours
+(``build_pyramid_from_nodes``).
 """
 
 from __future__ import annotations
@@ -145,4 +147,43 @@ def build_graph_pyramid(data: GraphData, config: GraphConfig):
         pyd[f"up_sample_idx{level}"] = np.asarray(up_idx, np.int16)
         pyd[f"nn_index_l{level}"] = edges.astype(np.int16)
         old_nodes = old_nodes[down_idx]
+    return pyd
+
+
+def _euclidean_knn_edges(points: np.ndarray, k: int) -> np.ndarray:
+    """[n, k] nearest-neighbour table (self excluded), -1 padded, each row
+    ordered by distance."""
+    n = points.shape[0]
+    out = -np.ones((n, k), np.int32)
+    if n <= 1:
+        return out
+    d = np.linalg.norm(points[:, None] - points[None], axis=-1)
+    np.fill_diagonal(d, np.inf)
+    k_eff = min(k, n - 1)
+    idx = np.argpartition(d, k_eff - 1, axis=1)[:, :k_eff]
+    order = np.argsort(np.take_along_axis(d, idx, axis=1), axis=1)
+    out[:, :k_eff] = np.take_along_axis(idx, order, axis=1).astype(np.int32)
+    return out
+
+
+def build_pyramid_from_nodes(nodes: np.ndarray, node_coverage: float,
+                             edges: np.ndarray | None = None,
+                             ks=PYRAMID_KS) -> Dict[str, np.ndarray]:
+    """The pyramid rebuilt without a source mesh (growth keyframes): level
+    0 is the live graph's edge table (or euclidean k-NN without one), the
+    coarser levels euclidean k-NN over the greedy-subsampled node sets,
+    coverage doubling per level."""
+    l0 = edges if edges is not None else _euclidean_knn_edges(nodes, ks[0])
+    pyd: Dict[str, np.ndarray] = {"nn_index_l0": l0.astype(np.int16)}
+    old_nodes = nodes
+    coverage = node_coverage
+    for level in range(1, 4):
+        coverage *= 2.0
+        down_idx, up_idx = _greedy_subsample(old_nodes, coverage)
+        sub = old_nodes[down_idx]
+        pyd[f"down_sample_idx{level}"] = np.asarray(down_idx, np.int16)
+        pyd[f"up_sample_idx{level}"] = np.asarray(up_idx, np.int16)
+        pyd[f"nn_index_l{level}"] = _euclidean_knn_edges(
+            sub, ks[level]).astype(np.int16)
+        old_nodes = sub
     return pyd

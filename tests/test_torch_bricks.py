@@ -37,7 +37,7 @@ def test_active_ids_and_slots_match_jax(setup, trunc_scale):  # noqa: F811
     depth, _, cfg, grid, origin = setup
     trunc = cfg.trunc_margin * trunc_scale
     ids_j = BRJ.active_bricks_from_depth(grid, origin, depth, INTR, trunc,
-                                         dilate=BR.BRICK_DILATE)
+                                         dilate=1)
     ids_t = BR.active_bricks_from_depth(_grid(grid), origin, depth, INTR_T,
                                         trunc)
     assert ids_t.dtype == ids_j.dtype and len(ids_t) > 0
@@ -55,7 +55,7 @@ def test_points_activation_matches_jax(setup):  # noqa: F811
         BR.active_bricks_from_points(_grid(grid), origin, pts,
                                      cfg.trunc_margin),
         BRJ.active_bricks_from_points(grid, origin, pts, cfg.trunc_margin,
-                                      dilate=BR.BRICK_DILATE),
+                                      dilate=1),
     )
     assert len(BR.active_bricks_from_points(_grid(grid), origin,
                                             np.zeros((0, 3)), 0.02)) == 0

@@ -28,7 +28,6 @@ from occlusionfusion_tpu.solvers.gauss_newton import GNConfig as GNConfigJ
 from occlusionfusion_tpu.utils.snapshot import load_params
 from occlusionfusion_tpu_torch.fusion.frame_loader import ArraySequence
 from occlusionfusion_tpu_torch.fusion.pipeline import (
-    UNPORTED,
     DynamicFusion,
     FusionConfig,
 )
@@ -146,15 +145,6 @@ def test_tracks_the_sphere(runs):
     t = ft.warp.translations.numpy()[: ft.node_count]
     np.testing.assert_allclose(np.median(t, axis=0), centers[-1] - centers[0],
                                atol=4e-3)
-
-
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_settings_are_rejected(name):
-    value = {bool: True, int: 2, float: 0.5, str: "override"}[
-        type(UNPORTED[name])]
-    assert getattr(FusionConfig(), name) == UNPORTED[name]
-    with pytest.raises(NotImplementedError, match=name):
-        FusionConfig(**{name: value})
 
 
 def test_flow_needs_both_nets():

@@ -127,3 +127,44 @@ def jax_lepard_match_counts():
         yield counts
     finally:
         lepard.scene_flow = orig
+
+
+# the fields a port FusionConfig copies from a JAX one (the JAX-only
+# lbs_impl and dense_skin_max_bytes and the solver configs aside)
+SHARED_FUSION_FIELDS = (
+    "vol_dim", "voxel_size", "trunc_margin_vox", "node_coverage",
+    "max_nodes", "max_points", "max_depth_diff", "use_motion_model",
+    "solver", "brick_size", "max_bricks", "brick_dilate", "use_flow",
+    "flow_mask_threshold", "flow_mode", "flow_advect_min_px",
+    "flow_advect_weight", "flow_advect_mask_threshold", "flow_advect_alpha",
+    "flow_downscale", "flow_mask_patch", "flow_lift", "flow_bf16",
+    "mask_downscale", "use_lepard", "lepard_max_target_points",
+    "lepard_every", "lepard_subsample", "growth_interval",
+    "keyframe_interval", "max_keyframes", "loop_radius", "loop_align_iters",
+    "loop_min_inliers", "loop_min_separation", "loop_max_residual",
+    "min_cluster_matches", "relocalize_threshold", "relocalize_min_obs_px",
+    "relocalize_recover_inliers", "relocalize_recovery",
+    "relocalize_feat_min_points", "min_correction",
+)
+
+
+def port_fusion_config(cfg_j, **kw):
+    """The port's FusionConfig with every shared field of the JAX one
+    ``cfg_j`` (its graph config too), and ``kw`` (nicp, gn) on top."""
+    from occlusionfusion_tpu_torch.fusion.pipeline import FusionConfig
+    from occlusionfusion_tpu_torch.graph.edgraph import GraphConfig
+
+    g = cfg_j.graph
+    return FusionConfig(
+        **{n: getattr(cfg_j, n) for n in SHARED_FUSION_FIELDS},
+        graph=GraphConfig(node_coverage=g.node_coverage,
+                          min_neighbors=g.min_neighbors), **kw)
+
+
+def port_sequence(seq_j):
+    """The port's ArraySequence of a JAX ArraySequence's frames."""
+    from occlusionfusion_tpu_torch.fusion.frame_loader import ArraySequence
+    from occlusionfusion_tpu_torch.geometry.camera import Intrinsics
+
+    return ArraySequence(seq_j.colors, seq_j.depths,
+                         Intrinsics(*(float(x) for x in seq_j.intrinsics)))
