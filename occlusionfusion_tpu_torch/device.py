@@ -80,11 +80,11 @@ _SIGNATURES = {
     # pts, anchors, weights, valid, nodes, R, t, P, K, N, out, stream
     "of_lbs_warp": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP,
                     _VP],
-    # pts, tgt, pv, anchors, weights, nodes, R, t, sw, P, N, M, b, sq,
-    # stream
+    # pts, tgt, pv, anchors, weights, nodes, R, t, sw, two_d, fx, fy, sf,
+    # sd, P, N, M, b, sq, stream
     "of_point_term_accumulate": [
-        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _F, _I, _I,
-        _VP, _VP, _VP, _VP,
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _F, _I, _F, _F, _F, _F, _I,
+        _I, _VP, _VP, _VP, _VP,
     ],
     # nodes, R, t, edges, wa, wm, motion_targets, N, E, M, b, sq, stream
     "of_arap_term_accumulate": [

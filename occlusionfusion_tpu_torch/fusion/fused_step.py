@@ -97,6 +97,9 @@ class FusionTables(NamedTuple):
     # connected component of each node (-1 padded), for freezing
     # match-starved components; None unless min_cluster_matches
     node_clusters: torch.Tensor = None
+    # N-ICP's chamfer subsamples [iters + 1, 2, S] (nicp.solve); None
+    # unless nicp.w_chamfer
+    chamfer_table: torch.Tensor = None
 
 
 class FusionStepState(NamedTuple):
@@ -422,7 +425,8 @@ def fused_register_frame(
             landmark_valid=corr_weight,
             motion_targets=motion_targets,
             motion_confidence=motion_conf,
-        ), config.nicp, init_rotations=init_R, init_translations=init_t)
+        ), config.nicp, init_rotations=init_R, init_translations=init_t,
+            chamfer_table=tables.chamfer_table)
         final_loss = result.final_loss
         solve_valid = torch.isfinite(final_loss)
     else:
@@ -439,6 +443,7 @@ def fused_register_frame(
             motion_targets=motion_targets,
             motion_confidence=motion_conf,
             solve_node_mask=solve_mask,
+            intrinsics=(intr.fx, intr.fy, intr.cx, intr.cy),
         ), config.gn, init_rotations=init_R, init_translations=init_t)
         final_loss = result.residual_history[-1]
         solve_valid = result.valid

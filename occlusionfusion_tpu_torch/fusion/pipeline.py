@@ -30,10 +30,14 @@ keyframes every ``keyframe_interval``-th frame with relocalization
 lost track, optionally seeded by the matcher) and loop closures over a
 keyframe pose graph (``trajectory``), freezing of match-starved graph
 components (``min_cluster_matches``), and ``save_state``/``load_state``
-in the JAX package's snapshot layout. The chamfer, silhouette and depth
-costs of N-ICP raise ``NotImplementedError`` (``nicp.check_config``);
-``lbs_impl`` and ``dense_skin_max_bytes`` choose a TPU-only dense
-skinning matmul and have no counterpart here.
+in the JAX package's snapshot layout. Every solver setting of the JAX
+package runs: N-ICP with its chamfer cost (the subsample table
+``nicp.default_chamfer_table``, or the caller's ``chamfer_table``), and
+``"gn_dense"`` with each linear solver and either data term. N-ICP's
+rendered costs do nothing on these paths, as in the JAX package, whose
+problems carry no target depth (ROADMAP F14). ``lbs_impl`` and
+``dense_skin_max_bytes`` choose a TPU-only dense skinning matmul and have
+no counterpart here.
 """
 
 from __future__ import annotations
@@ -83,8 +87,15 @@ from occlusionfusion_tpu_torch.graph.edgraph import (
     build_pyramid_from_nodes,
 )
 from occlusionfusion_tpu_torch.models.lepard import scene_flow
-from occlusionfusion_tpu_torch.solvers.gauss_newton import GNConfig
-from occlusionfusion_tpu_torch.solvers.nicp import NICPConfig, check_config
+from occlusionfusion_tpu_torch.solvers.gauss_newton import (
+    DATA_TERMS,
+    LINEAR_SOLVERS,
+    GNConfig,
+)
+from occlusionfusion_tpu_torch.solvers.nicp import (
+    NICPConfig,
+    default_chamfer_table,
+)
 from occlusionfusion_tpu_torch.utils.snapshot import load_params, save_pytree
 
 
@@ -197,11 +208,17 @@ class FusionConfig:
     min_correction: float = 1e-4
 
     def __post_init__(self):
-        """Rejects unknown choices and the N-ICP costs this port lacks."""
+        """Rejects unknown choices."""
         if self.solver not in ("nicp", "gn_dense"):
             raise ValueError(
                 f"solver must be 'nicp' or 'gn_dense', got {self.solver!r}")
-        check_config(self.nicp)
+        if self.gn.linear_solver not in LINEAR_SOLVERS:
+            raise ValueError(f"gn.linear_solver must be one of "
+                             f"{LINEAR_SOLVERS}, got "
+                             f"{self.gn.linear_solver!r}")
+        if self.gn.data_term not in DATA_TERMS:
+            raise ValueError(f"gn.data_term must be one of {DATA_TERMS}, "
+                             f"got {self.gn.data_term!r}")
         if self.flow_mode not in ("fill", "override", "advect"):
             raise ValueError(f"flow_mode must be 'fill', 'override' or "
                              f"'advect', got {self.flow_mode!r}")
@@ -225,13 +242,17 @@ class FusionConfig:
 
 class DynamicFusion:
     def __init__(self, sequence, config: FusionConfig, device=None,
-                 flow_net=None, mask_net=None, lepard_net=None):
+                 flow_net=None, mask_net=None, lepard_net=None,
+                 chamfer_table=None):
         """``flow_net``/``mask_net``: PWC-Net and MaskNet
         (``models.checkpoint.load_flow_nets``); ``config.use_flow``
         requires the PWC-Net, and without a MaskNet the flow's weights
         are its validity; ``lepard_net``: the matcher
         (``models.checkpoint.load_lepard_checkpoint``), required by
-        ``config.use_lepard`` and used by the feature-seeded recovery."""
+        ``config.use_lepard`` and used by the feature-seeded recovery;
+        ``chamfer_table``: N-ICP's chamfer subsamples [iters + 1, 2, S]
+        for every frame (``nicp.solve``; default
+        ``nicp.default_chamfer_table``)."""
         self.seq = sequence
         self.config = config
         self.intr = sequence.intrinsics
@@ -243,6 +264,7 @@ class DynamicFusion:
         self.flow_net = flow_net
         self.mask_net = mask_net
         self.lepard_net = lepard_net
+        self.chamfer_table = chamfer_table
         self.track_lost = False
         self.frame_id = -1
         self.prev_frame = None
@@ -397,6 +419,20 @@ class DynamicFusion:
             self.warp, self.model_points, self.config.node_coverage
         )
 
+    def _chamfer_table(self):
+        """N-ICP's chamfer subsample table for the fused step (the
+        caller's ``chamfer_table``, else the default one; drawn here,
+        outside any capture), None unless the step runs the chamfer
+        cost."""
+        cfg = self.config
+        if cfg.solver != "nicp" or not cfg.nicp.w_chamfer:
+            return None
+        if self.chamfer_table is not None:
+            return torch.as_tensor(self.chamfer_table, dtype=torch.int64,
+                                   device=self.device)
+        P = self.model_points.shape[0]
+        return default_chamfer_table(cfg.nicp, P, P, self.device)
+
     # ------------------------------------------------------------------
     def build_fused(self, motion_net=None):
         """Device-resident tables + state for the fused path. Call after
@@ -437,6 +473,7 @@ class DynamicFusion:
             n_nodes=self._t(self.node_count, torch.int32),
             node_clusters=(self.node_clusters if cfg.min_cluster_matches
                            else None),
+            chamfer_table=self._chamfer_table(),
         )
         # the flow source: the previous frame's RGB-XYZ image (none after
         # load_state, where the stepwise loop's first frame runs no flow)

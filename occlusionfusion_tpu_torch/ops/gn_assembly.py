@@ -7,20 +7,24 @@ system M [6N, 6N], b [6N] and sq that the caller owns and zeroes.
 replacing the TPU kernel ``point_term_blocks_pallas`` and the caller's
 scatter of its blocks) on CUDA tensors. On CPU tensors it runs the plain
 twin ``point_term_accumulate_torch``: the per-point blocks of
-``point_term_blocks_torch`` segment-summed into the [N*N, 36] block table
-and permuted into M's layout. Both follow
+``point_term_blocks_torch`` summed into M at their anchor pairs. Both follow
 ``_assemble_blocks(assembly="blocks")`` of the JAX package, not the TPU
 kernel, which gates the blend weights by the point weight and so gets
 the residual wrong for fractional weights: the warp blends with the raw
 skinning weights, the jacobian with the gated ones, and the residual
-carries the point weight once.
+carries the point weight once. With ``proj`` = (fx, fy, sf, sd) both add
+the 2d_depth data term instead of point3d: the residual is the projected
+rows (sf (u - tu), sf (v - tv), sd (z - tz)) and each jacobian block is
+G J_k, G the row scaling at the warped point (JAX
+``projection_row_scaling``); the JAX package sends this data term to its
+XLA "blocks" assembly on every backend, which both follow.
 
 ``arap_term_accumulate`` launches kernel K4' (``csrc/arap_term.cu``,
 replacing ``arap_term_blocks_pallas``, the caller's scatter and the
 motion-prior ops) on CUDA tensors, and runs the plain twin
 ``arap_term_accumulate_torch`` (the per-edge blocks of
-``arap_term_blocks_torch``, the JAX package's XLA ARAP branch, scattered
-the same way, plus the motion prior) on CPU tensors.
+``arap_term_blocks_torch``, the JAX package's XLA ARAP branch, summed
+into M the same way, plus the motion prior) on CPU tensors.
 
 M's layout is the JAX package's: the 6x6 block of node pair (a, c)
 starts at row 6a, column 6c. Both kernels add with atomics, so their sum
@@ -34,16 +38,20 @@ import torch
 from occlusionfusion_tpu_torch import device as D
 from occlusionfusion_tpu_torch.geometry.so3 import hat
 from occlusionfusion_tpu_torch.ops.segment_ops import segment_sum
-from occlusionfusion_tpu_torch.solvers.gauss_newton import data_residual_rows
+from occlusionfusion_tpu_torch.solvers.gauss_newton import (
+    data_rows,
+    row_scaling,
+)
 
 K_ANCHORS = 4
 
 
 def point_term_blocks_torch(points, targets, point_valid, anchors, weights,
-                            nodes, R, t, sw: float):
-    """Per-point blocks: gathers, the analytic jacobian blocks, and the
-    pair products as one einsum. Returns (blk [P, 16, 6, 6], b [P, 4, 6],
-    rsq [P]); the 16 anchor pairs in (k, l) row-major order."""
+                            nodes, R, t, sw: float, proj=None):
+    """Per-point blocks: gathers, the analytic jacobian blocks (scaled by
+    the 2d_depth rows' G where ``proj``), and the pair products as one
+    einsum. Returns (blk [P, 16, 6, 6], b [P, 4, 6], rsq [P]); the 16
+    anchor pairs in (k, l) row-major order."""
     P, K = anchors.shape
     a = anchors.long()
     g = nodes[a]
@@ -52,11 +60,13 @@ def point_term_blocks_torch(points, targets, point_valid, anchors, weights,
     local = torch.einsum("pkij,pkj->pki", Rk, points[:, None] - g)
     w = weights * point_valid[:, None]
     warped = torch.sum(weights[..., None] * (local + g + tk), dim=1)
-    r = data_residual_rows(warped, targets, point_valid, sw)
+    r = sw * point_valid[:, None] * data_rows(warped, targets, proj)
     Jw = -hat(local) * w[..., None, None]
     eye = torch.eye(3, dtype=points.dtype, device=points.device)
     Jt = eye.expand(P, K, 3, 3) * w[..., None, None]
     J = sw * torch.cat([Jw, Jt], dim=-1)  # [P, K, 3, 6]
+    if proj is not None:
+        J = torch.einsum("pab,pkbc->pkac", row_scaling(warped, proj), J)
     blk = torch.einsum("pkai,plaj->pklij", J, J).reshape(P, K * K, 6, 6)
     b = torch.einsum("pkai,pa->pki", J, r)
     return blk, b, torch.sum(r * r, dim=-1)
@@ -88,31 +98,37 @@ def arap_term_blocks_torch(nodes, R, t, edges, wa):
     return ii, ij, ij.transpose(2, 3), jj, b_i, b_j, rsq
 
 
-def _add_block_table(M, table):
-    """M [6N, 6N] += the [N*N, 36] block table in M's layout."""
+def _add_blocks(M, seg, blocks):
+    """M [6N, 6N] += each 6x6 block at node pair seg = a * N + c, equal
+    pairs summed (the segment-sum into the [N*N, 36] block table and its
+    permute into M's layout, in one accumulating write through a view)."""
     n = M.shape[0] // 6
-    M += table.reshape(n, n, 6, 6).permute(0, 2, 1, 3).reshape(6 * n, 6 * n)
+    M.view(n, 6, n, 6).permute(0, 2, 1, 3).index_put_(
+        (seg // n, seg % n), blocks.reshape(-1, 6, 6), accumulate=True)
 
 
 def point_term_accumulate_torch(points, targets, point_valid, anchors,
-                                weights, nodes, R, t, sw: float, M, b, sq):
-    """Plain twin of K3': the per-point blocks, one segment-sum of them
-    into the [N*N, 36] block table, then M's layout."""
+                                weights, nodes, R, t, sw: float, M, b, sq,
+                                proj=None):
+    """Plain twin of K3': the per-point blocks, summed into M at their
+    anchor pairs."""
     n = nodes.shape[0]
     blk, b_pt, rsq = point_term_blocks_torch(
-        points, targets, point_valid, anchors, weights, nodes, R, t, sw
+        points, targets, point_valid, anchors, weights, nodes, R, t, sw,
+        proj,
     )
     a = anchors.long()
-    seg = (a[:, :, None] * n + a[:, None, :]).reshape(-1)
-    _add_block_table(M, segment_sum(blk.reshape(-1, 36), seg, n * n))
+    _add_blocks(M, (a[:, :, None] * n + a[:, None, :]).reshape(-1), blk)
     b += segment_sum(b_pt.reshape(-1, 6), a.reshape(-1), n).reshape(-1)
     sq += torch.sum(rsq)
 
 
 def point_term_accumulate_cuda(points, targets, point_valid, anchors,
-                               weights, nodes, R, t, sw: float, M, b, sq):
+                               weights, nodes, R, t, sw: float, M, b, sq,
+                               proj=None):
     """Kernel K3'. Bound on the H100 by its atomics into M; see the note
-    in the source."""
+    in the source. ``proj`` = (fx, fy, sf, sd) selects the 2d_depth
+    rows."""
     P, K = anchors.shape
     N = nodes.shape[0]
     if K != K_ANCHORS:
@@ -134,33 +150,36 @@ def point_term_accumulate_cuda(points, targets, point_valid, anchors,
     _check_system(M, b, sq, N)
     if P == 0:
         return
+    fx, fy, sf, sd = (0.0, 0.0, 0.0, 0.0) if proj is None else proj
     D.launch(
         "of_point_term_accumulate", dev, points.data_ptr(),
         targets.data_ptr(), point_valid.data_ptr(), anchors.data_ptr(),
         weights.data_ptr(), nodes.data_ptr(), R.data_ptr(), t.data_ptr(),
-        float(sw), P, N, M.data_ptr(), b.data_ptr(), sq.data_ptr(),
+        float(sw), int(proj is not None), float(fx), float(fy), float(sf),
+        float(sd), P, N, M.data_ptr(), b.data_ptr(), sq.data_ptr(),
     )
     D.count_launch("point_term_blocks")
 
 
 def point_term_accumulate(points, targets, point_valid, anchors, weights,
-                          nodes, R, t, sw: float, M, b, sq):
-    """Add the point term into (M, b, sq): K3' on CUDA tensors, the twin
-    on CPU tensors."""
+                          nodes, R, t, sw: float, M, b, sq, proj=None):
+    """Add the point term (point3d, or 2d_depth with ``proj`` = (fx, fy,
+    sf, sd)) into (M, b, sq): K3' on CUDA tensors, the twin on CPU
+    tensors."""
     if points.is_cuda:
         c = [x.contiguous() for x in
              (points, targets, point_valid, anchors, weights, nodes, R, t)]
-        point_term_accumulate_cuda(*c, sw, M, b, sq)
+        point_term_accumulate_cuda(*c, sw, M, b, sq, proj=proj)
     else:
         point_term_accumulate_torch(points, targets, point_valid, anchors,
-                                    weights, nodes, R, t, sw, M, b, sq)
+                                    weights, nodes, R, t, sw, M, b, sq,
+                                    proj=proj)
 
 
 def arap_term_accumulate_torch(nodes, R, t, edges, wa, wm, motion_targets,
                                M, b, sq):
-    """Plain twin of K4': the per-edge blocks, one segment-sum of ij, ji
-    and jj plus ii and the motion prior on the diagonal into the block
-    table, then M's layout. ``wm`` [N] is the motion prior's weight,
+    """Plain twin of K4': the per-edge blocks ij, ji and jj and, on the
+    diagonal, ii and the motion prior, summed into M at their node pairs. ``wm`` [N] is the motion prior's weight,
     sqrt(w_motion) * confidence on valid nodes; its residual is
     r_m = wm (g + t - m)."""
     n, E = edges.shape
@@ -169,17 +188,14 @@ def arap_term_accumulate_torch(nodes, R, t, edges, wa, wm, motion_targets,
     )
     e = edges.long()
     idx_i = torch.arange(n, device=nodes.device)[:, None].expand(n, E)
-    segs = torch.cat([(idx_i * n + e).reshape(-1), (e * n + idx_i).reshape(-1),
-                      (e * n + e).reshape(-1)])
-    table = segment_sum(
-        torch.cat([x.reshape(-1, 36) for x in (ij, ji, jj)]), segs, n * n
-    )
     r_m = wm[:, None] * (nodes + t - motion_targets)
     mot = torch.zeros((n, 6, 6), dtype=nodes.dtype, device=nodes.device)
     mot[:, 3:, 3:] = torch.eye(3, device=nodes.device) * (wm**2)[:, None, None]
     diag = torch.arange(n, device=nodes.device) * (n + 1)
-    table.index_add_(0, diag, (ii + mot).reshape(-1, 36))
-    _add_block_table(M, table)
+    segs = torch.cat([(idx_i * n + e).reshape(-1), (e * n + idx_i).reshape(-1),
+                      (e * n + e).reshape(-1), diag])
+    _add_blocks(M, segs, torch.cat([x.reshape(-1, 36)
+                                    for x in (ij, ji, jj, ii + mot)]))
     b_nodes = segment_sum(b_j.reshape(-1, 6), e.reshape(-1), n) + b_i
     b_nodes[:, 3:] += wm[:, None] * r_m
     b += b_nodes.reshape(-1)

@@ -64,6 +64,33 @@ def _bias(valid, n: int, like: torch.Tensor) -> torch.Tensor:
     )
 
 
+def _k_smallest(d2, k: int):
+    """The first k of a stable ascending sort of d2 along its last axis:
+    (values, indices), equal distances in index order. On the CPU, where
+    sorting whole rows costs most of a test's ``initialize``, it selects
+    with ``topk`` instead (k + 1 candidates), orders the k by index and
+    then stably by value, and sorts in full only the rows whose k-th and
+    (k+1)-th values tie, where the selection itself is ambiguous; the
+    result is the stable sort's. On the card the sort stays."""
+    n = d2.shape[-1]
+    if d2.is_cuda or k >= n:
+        top, idx = torch.sort(d2, dim=-1, stable=True)
+        return top[..., :k], idx[..., :k]
+    with torch.no_grad():
+        vals, idx = torch.topk(d2, k + 1, dim=-1, largest=False)
+        tie = vals[..., k - 1] == vals[..., k]
+        idx = torch.sort(idx[..., :k], dim=-1).values
+        order = torch.sort(torch.gather(d2, -1, idx), dim=-1, stable=True)[1]
+        idx = torch.gather(idx, -1, order)
+        if bool(tie.any()):
+            flat = idx.reshape(-1, k)
+            rows = torch.nonzero(tie.reshape(-1))[:, 0]
+            flat[rows] = torch.sort(d2.reshape(-1, n)[rows], dim=-1,
+                                    stable=True)[1][:, :k]
+            idx = flat.reshape(idx.shape)
+    return torch.gather(d2, -1, idx), idx
+
+
 def knn_torch(queries, refs, k: int, valid=None):
     """Plain PyTorch twin: chunked dense distances + a stable sort.
     Returns (sq_dists [..., P, k] f32, idx [..., P, k] int32) for queries
@@ -81,6 +108,15 @@ def knn_torch(queries, refs, k: int, valid=None):
     refs = refs.to(torch.float32)
     P, N = queries.shape[-2], refs.shape[-2]
     k = min(k, N)
+    if not queries.is_cuda and valid is not None and valid.dim() == 1 \
+            and refs.dim() == 2:
+        # on the CPU, search the valid refs only (in index order, so ties
+        # still go to the lower index; a valid ref's bias is +0): skinning
+        # searches a node table that is mostly padding
+        keep = torch.nonzero(valid.to(torch.bool))[:, 0]
+        if keep.numel() >= k:
+            d2, idx = knn_torch(queries, refs[keep], k)
+            return d2, keep[idx.long()].to(torch.int32)
     ref_sq = _sq3(refs)[..., None, :]
     bias = _bias(valid, N, refs)[..., None, :]
     d2s, idxs = [], []
@@ -88,9 +124,9 @@ def knn_torch(queries, refs, k: int, valid=None):
         q = queries[..., lo : lo + _CHUNK, :]
         dot = _fma_dot3(q[..., :, None, :], refs[..., None, :, :])
         d2 = _fma_dot3(q, q)[..., None] - 2.0 * dot + ref_sq + bias
-        top, idx = torch.sort(d2, dim=-1, stable=True)
-        d2s.append(torch.clamp(top[..., :k], min=0.0))
-        idxs.append(idx[..., :k].to(torch.int32))
+        top, idx = _k_smallest(d2, k)
+        d2s.append(torch.clamp(top, min=0.0))
+        idxs.append(idx.to(torch.int32))
     if not d2s:
         shape = torch.broadcast_shapes(queries.shape[:-2],
                                        refs.shape[:-2]) + (0, k)

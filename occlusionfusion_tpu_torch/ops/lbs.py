@@ -22,6 +22,7 @@ from occlusionfusion_tpu_torch.fusion.warpfield import (
     deform_points,
     to_origin_form,
 )
+from occlusionfusion_tpu_torch.geometry.edwarp import ed_warp
 
 
 def pack_transforms(state: WarpFieldState) -> torch.Tensor:
@@ -31,8 +32,17 @@ def pack_transforms(state: WarpFieldState) -> torch.Tensor:
 
 
 def lbs_warp_torch(points, anchors, weights, valid, state: WarpFieldState):
-    """Plain twin (gather + einsum)."""
-    return deform_points(state, points, SkinTable(anchors, weights, valid))
+    """Plain twin (gather + einsum). On the CPU it warps only the valid
+    points, with the same arithmetic per point: most voxels of a volume
+    are unreachable and pass through unchanged."""
+    if points.is_cuda:
+        return deform_points(state, points,
+                             SkinTable(anchors, weights, valid))
+    rows = torch.nonzero(valid)[:, 0]
+    out = points.clone()
+    out[rows] = ed_warp(points[rows], state.node_positions, state.rotations,
+                        state.translations, anchors[rows], weights[rows])
+    return out
 
 
 # the most nodes whose origin-form table (48 bytes a node) K2 holds in

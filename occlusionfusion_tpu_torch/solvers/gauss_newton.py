@@ -1,38 +1,63 @@
-"""Gauss-Newton problem types and the matrix-free GN-CG solver (port of
-``occlusionfusion_tpu/solvers/gauss_newton.py``).
+"""Gauss-Newton problem types, the data terms and the matrix-free GN-CG
+solver (port of ``occlusionfusion_tpu/solvers/gauss_newton.py``).
 
-Only the isotropic point-to-point data term (the JAX ``point3d``) is
-ported. The dense solver (``gauss_newton_dense.solve_dense``) assembles
-the normal equations by blocks, kernels K3' and K4' on CUDA tensors,
-their twins on CPU tensors, and solves them by Cholesky. ``solve`` never
-forms them: conjugate gradients over the free nodes' (dw, t) on the
-residuals' jacobian, without the block-Jacobi preconditioner. Graph
-growth runs it to ARAP-initialise new nodes with the old ones frozen.
+Two data terms, as in the JAX package: ``"point3d"``, the isotropic
+point-to-point residual, and ``"2d_depth"``, the reference's anisotropic
+stack of two image-plane rows weighted ``w_flow`` and a camera-depth row
+weighted ``w_depth``; both sides of the 2d_depth rows are projected
+through ``GNProblem.intrinsics``. The dense solver
+(``gauss_newton_dense.solve_dense``) assembles the normal equations by
+blocks, kernels K3' and K4' on CUDA tensors, their twins on CPU tensors,
+and solves them by Cholesky, block-Jacobi PCG, a recursive Schur inverse
+or Newton-Schulz. ``solve`` never forms them: conjugate gradients over
+the free nodes' (dw, t) on the residuals' jacobian, optionally
+preconditioned by the inverse 6x6 diagonal blocks of J^T J. Graph growth
+runs it to ARAP-initialise new nodes with the old ones frozen.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from occlusionfusion_tpu_torch.geometry.edwarp import ed_warp
 from occlusionfusion_tpu_torch.geometry.so3 import so3_exp
 
+LINEAR_SOLVERS = ("cholesky", "cg", "schur", "ns")
+DATA_TERMS = ("point3d", "2d_depth")
+
 
 class GNConfig(NamedTuple):
     iters: int = 10
+    cg_iters: int = 32  # the matrix-free solver's CG iterations a step
     lm_damping: float = 1e-4
     w_point: float = 1.0
     w_arap: float = 2.0
     w_motion: float = 0.0
-    # the dense solver's linear solver (Cholesky only)
-    linear_solver: str = "cholesky"
-    # the matrix-free solver's CG iterations per GN step (full steps);
-    # the JAX block-Jacobi preconditioner is not ported: check_config
-    # raises on precondition=True
-    cg_iters: int = 32
+    step_length: float = 1.0
+    # block-Jacobi preconditioning of the matrix-free CG (6x6 diagonal
+    # blocks of J^T J)
     precondition: bool = False
+    # the dense solver's linear solver: "cholesky", "cg" (block-Jacobi
+    # PCG on the assembled M, dense_cg_iters), "schur" (recursive Schur
+    # inverse, leaves of schur_leaf) or "ns" (Newton-Schulz from the
+    # inverse diagonal blocks of ns_block, ns_iters)
+    linear_solver: str = "cholesky"
+    dense_cg_iters: int = 24
+    schur_leaf: int = 96
+    ns_iters: int = 12
+    ns_block: int = 96
+    # "point3d" or "2d_depth" (GNProblem.intrinsics required); the
+    # 2d_depth rows' weights (lambda^2, times w_point like the rest)
+    data_term: str = "point3d"
+    w_flow: float = 1e-3
+    w_depth: float = 1.0
+    # accepted for the JAX package's configs: it chose the XLA precision
+    # of the J^T J contraction; the port assembles M in f32 whatever it
+    # says, as the JAX package does on the CPU
+    normal_matrix_precision: str = "highest"
 
 
 class GNProblem(NamedTuple):
@@ -50,6 +75,9 @@ class GNProblem(NamedTuple):
     motion_targets: torch.Tensor  # [N, 3]
     motion_confidence: torch.Tensor  # [N]
     solve_node_mask: torch.Tensor  # [N] True = free
+    # fx, fy, cx, cy: four Python floats (what a captured step takes) or
+    # a [4] tensor; required by data_term="2d_depth"
+    intrinsics: tuple | torch.Tensor | None = None
 
 
 class GNResult(NamedTuple):
@@ -60,20 +88,81 @@ class GNResult(NamedTuple):
     valid: torch.Tensor  # 0-d bool: every iteration finite
 
 
-def check_config(config: GNConfig) -> None:
-    if config.linear_solver != "cholesky":
-        raise NotImplementedError(
-            f"linear_solver={config.linear_solver!r} is not ported "
-            "(cholesky only)"
-        )
-    if config.precondition:
-        raise NotImplementedError("precondition=True is not ported")
+def _f32_sqrt(w: float) -> float:
+    """sqrt of a weight rounded as the JAX package forms it (in f32)."""
+    return float(np.sqrt(np.float32(w)))
 
 
-def data_residual_rows(warped, targets, point_valid, sw: float):
-    """Weighted point3d data residual [P, 3]: sw * pv * (warped - y), with
-    sw = sqrt(w_point); the point weight pv enters once."""
-    return sw * point_valid[:, None] * (warped - targets)
+def projection(problem: GNProblem, config: GNConfig):
+    """(fx, fy, sf, sd) as floats for the 2d_depth data term, with
+    sf = sqrt(w_flow) and sd = sqrt(w_depth); None for point3d. A tensor
+    ``intrinsics`` is read back to the host here, so a captured step
+    passes floats."""
+    if config.data_term not in DATA_TERMS:
+        raise ValueError(f"data_term must be one of {DATA_TERMS}, got "
+                         f"{config.data_term!r}")
+    if config.data_term == "point3d":
+        return None
+    if problem.intrinsics is None:
+        raise ValueError("data_term='2d_depth' needs GNProblem.intrinsics")
+    intr = problem.intrinsics
+    if isinstance(intr, torch.Tensor):
+        intr = intr.tolist()
+    return (float(np.float32(intr[0])), float(np.float32(intr[1])),
+            _f32_sqrt(config.w_flow), _f32_sqrt(config.w_depth))
+
+
+def _project_uvz(points, fx: float, fy: float):
+    """(u, v, z) image coordinates of camera-space points, without the
+    principal point (it cancels in every residual difference); the 1e-7
+    guards padded zero points."""
+    zinv = 1.0 / (points[..., 2] + 1e-7)
+    return fx * points[..., 0] * zinv, fy * points[..., 1] * zinv, \
+        points[..., 2]
+
+
+def data_rows(warped, targets, proj):
+    """Unweighted data rows [P, 3]: warped - targets (point3d, ``proj``
+    None) or (sf (u - tu), sf (v - tv), sd (z - tz)) with ``proj`` =
+    (fx, fy, sf, sd)."""
+    if proj is None:
+        return warped - targets
+    fx, fy, sf, sd = proj
+    u, v, z = _project_uvz(warped, fx, fy)
+    tu, tv, tz = _project_uvz(targets, fx, fy)
+    return torch.stack([sf * (u - tu), sf * (v - tv), sd * (z - tz)], -1)
+
+
+def row_scaling(warped, proj):
+    """[P, 3, 3] left factor G = d(sf u, sf v, sd z)/d(xyz) at the warped
+    points, turning 3D-point jacobian rows into the 2d_depth rows; None
+    for point3d."""
+    if proj is None:
+        return None
+    fx, fy, sf, sd = proj
+    zinv = 1.0 / (warped[:, 2] + 1e-7)
+    G = torch.zeros((warped.shape[0], 3, 3), dtype=warped.dtype,
+                    device=warped.device)
+    G[:, 0, 0] = sf * fx * zinv
+    G[:, 0, 2] = -sf * fx * warped[:, 0] * zinv * zinv
+    G[:, 1, 1] = sf * fy * zinv
+    G[:, 1, 2] = -sf * fy * warped[:, 1] * zinv * zinv
+    G[:, 2, 2] = sd
+    return G
+
+
+def data_residual_rows(warped, problem: GNProblem, config: GNConfig):
+    """Weighted data residual [P, 3] at the warped points:
+    sqrt(w_point) * pv * rows; the point weight pv enters once."""
+    sw = _f32_sqrt(config.w_point)
+    rows = data_rows(warped, problem.target_points,
+                     projection(problem, config))
+    return sw * problem.point_valid[:, None] * rows
+
+
+def projection_row_scaling(warped, problem: GNProblem, config: GNConfig):
+    """``row_scaling`` for this problem's data term (None for point3d)."""
+    return row_scaling(warped, projection(problem, config))
 
 
 def _residuals(dw, t, problem: GNProblem, config: GNConfig, base_R):
@@ -83,9 +172,7 @@ def _residuals(dw, t, problem: GNProblem, config: GNConfig, base_R):
     R = torch.einsum("nij,njk->nik", so3_exp(dw), base_R)
     warped = ed_warp(problem.source_points, problem.nodes, R, t,
                      problem.point_anchors, problem.point_weights)
-    point = data_residual_rows(warped, problem.target_points,
-                               problem.point_valid, float(config.w_point)
-                               ** 0.5)
+    point = data_residual_rows(warped, problem, config)
     e = torch.clamp(problem.edges, min=0).long()
     g_i = problem.nodes[:, None]
     g_j = problem.nodes[e]
@@ -108,15 +195,16 @@ def solve(problem: GNProblem, config: GNConfig = GNConfig(),
           init_rotations=None, init_translations=None) -> GNResult:
     """``config.iters`` LM-damped GN steps, each solving
     (J^T J + lm I) x = -J^T r over the free nodes' (dw, t) by
-    ``config.cg_iters`` CG iterations; a step that is not finite is
-    dropped and clears ``valid``. Frozen (``solve_node_mask`` False) and
-    padded nodes keep their transforms. J is formed over the free nodes'
-    parameters only, once per GN step, by forward differentiation
-    (``torch.func.jacfwd``); CG then runs on its products. That is the
-    JAX solver's masked CG over all nodes, whose frozen components stay
-    zero, in a few dozen device ops a step rather than a jvp and a vjp
-    per CG iteration."""
-    check_config(config)
+    ``config.cg_iters`` CG iterations, preconditioned by the inverse
+    damped 6x6 diagonal blocks of J^T J (``diag_blocks``) where
+    ``config.precondition``; the step is x * ``step_length``. A step
+    that is not finite is dropped and clears ``valid``. Frozen
+    (``solve_node_mask`` False) and padded nodes keep their transforms.
+    J is formed over the free nodes' parameters only, once per GN step,
+    by forward differentiation (``torch.func.jacfwd``); CG then runs on
+    its products. That is the JAX solver's masked CG over all nodes,
+    whose frozen components stay zero, in a few dozen device ops a step
+    rather than a jvp and a vjp per CG iteration."""
     n = problem.nodes.shape[0]
     dev = problem.nodes.device
     R = (init_rotations if init_rotations is not None else
@@ -147,18 +235,36 @@ def solve(problem: GNProblem, config: GNConfig = GNConfig(),
         def jtj(v):
             return J.T @ (J @ v) + lm * v
 
+        if config.precondition:
+            from occlusionfusion_tpu_torch.solvers.gauss_newton_dense import (
+                diag_blocks,
+            )
+
+            Db = diag_blocks(problem, config, R, t)[free] + lm * torch.eye(
+                6, dtype=torch.float32, device=dev)
+            Dinv = torch.linalg.inv_ex(Db).inverse  # [k, 6, 6]
+
+            def apply_m(v):
+                return torch.einsum("nij,nj->ni", Dinv,
+                                    v.reshape(k, 6)).reshape(-1)
+        else:
+            def apply_m(v):
+                return v
+
         b = -(J.T @ r0)
         x = torch.zeros_like(b)
-        r, p, rz = b, b, torch.dot(b, b)
+        z = apply_m(b)
+        r, p, rz = b, z, torch.dot(b, z)
         for _ in range(config.cg_iters):
             Ap = jtj(p)
             alpha = rz / torch.clamp(torch.dot(p, Ap), min=1e-20)
             x = x + alpha * p
             r = r - alpha * Ap
-            rz_new = torch.dot(r, r)
-            p = r + rz_new / torch.clamp(rz, min=1e-20) * p
+            z = apply_m(r)
+            rz_new = torch.dot(r, z)
+            p = z + rz_new / torch.clamp(rz, min=1e-20) * p
             rz = rz_new
-        x = x.reshape(k, 6)
+        x = x.reshape(k, 6) * config.step_length
         finite = torch.isfinite(x).all()
         x = torch.where(finite, x, torch.zeros_like(x))
         R = torch.einsum("nij,njk->nik",

@@ -1,16 +1,19 @@
 """Warp-field cost terms of N-ICP (port of
 ``occlusionfusion_tpu/solvers/losses.py``).
 
-ARAP, landmark, confidence-weighted motion and temporal smoothness, on
-static-shape padded tensors with validity masks, differentiable by
-autograd. The truncated chamfer, silhouette and projective-depth terms
-are not ported: their weights are 0 by default, and ``nicp.solve``
-raises when one is set.
+ARAP, landmark, truncated chamfer, confidence-weighted motion,
+silhouette, projective depth and temporal smoothness, on static-shape
+padded tensors with validity masks, differentiable by autograd. The
+chamfer cost takes its random subsample as index tensors (the JAX
+package draws it from a PRNG key inside the cost), so a caller can hand
+it the JAX package's own indices and a captured solve draws nothing.
 """
 
 from __future__ import annotations
 
 import torch
+
+from occlusionfusion_tpu_torch.ops.knn import knn_torch
 
 
 def arap_cost(
@@ -48,6 +51,34 @@ def landmark_cost(
     return torch.sum(sq)
 
 
+def truncated_chamfer_cost(
+    src: torch.Tensor,  # [P, 3]
+    tgt: torch.Tensor,  # [Q, 3]
+    src_idx: torch.Tensor,  # [S] subsample of src
+    tgt_idx: torch.Tensor,  # [T] subsample of tgt
+    src_valid: torch.Tensor | None = None,  # [P] bool
+    tgt_valid: torch.Tensor | None = None,  # [Q] bool
+    trunc: float = 0.3,
+) -> torch.Tensor:
+    """Symmetric chamfer over the subsamples src[src_idx], tgt[tgt_idx]:
+    each side's squared distance to its nearest valid point of the other
+    (``knn_torch``, k = 1), zeroed at or beyond ``trunc`` and where the
+    side's own point is invalid, summed."""
+    s, t = src[src_idx.long()], tgt[tgt_idx.long()]
+    sv = src_valid[src_idx.long()] if src_valid is not None else None
+    tv = tgt_valid[tgt_idx.long()] if tgt_valid is not None else None
+    d2_st = knn_torch(s, t, 1, valid=tv)[0][:, 0]
+    d2_ts = knn_torch(t, s, 1, valid=sv)[0][:, 0]
+    zero = torch.zeros((), dtype=d2_st.dtype, device=d2_st.device)
+    d2_st = torch.where(d2_st < trunc, d2_st, zero)
+    d2_ts = torch.where(d2_ts < trunc, d2_ts, zero)
+    if sv is not None:
+        d2_st = torch.where(sv, d2_st, zero)
+    if tv is not None:
+        d2_ts = torch.where(tv, d2_ts, zero)
+    return torch.sum(d2_st) + torch.sum(d2_ts)
+
+
 def motion_cost(
     nodes: torch.Tensor,  # [N, 3]
     translations: torch.Tensor,  # [N, 3]
@@ -64,6 +95,27 @@ def motion_cost(
     per = torch.where(node_valid[:, None], per, torch.zeros_like(per))
     denom = torch.clamp(torch.sum(node_valid) * 3, min=1)
     return torch.sum(per) / denom
+
+
+def silhouette_cost(src_mask: torch.Tensor,
+                    tgt_mask: torch.Tensor) -> torch.Tensor:
+    """Share of the pixels outside the target silhouette that the source
+    silhouette covers. As in the JAX package the source mask is a
+    boolean splat cast to f32, so this cost has no gradient: its weight
+    changes the loss and the early stop, never a node (ROADMAP F15)."""
+    outside = torch.where(~tgt_mask, src_mask.to(torch.float32),
+                          torch.zeros((), device=src_mask.device))
+    denom = torch.clamp(torch.sum(~tgt_mask), min=1)
+    return torch.sum(outside * outside) / denom
+
+
+def projective_depth_cost(src_depth: torch.Tensor,
+                          tgt_depth: torch.Tensor) -> torch.Tensor:
+    """Mean squared depth difference over the pixels both maps observe."""
+    both = (src_depth > 0) & (tgt_depth > 0)
+    err = torch.where(both, (src_depth - tgt_depth) ** 2,
+                      torch.zeros((), device=src_depth.device))
+    return torch.sum(err) / torch.clamp(torch.sum(both), min=1)
 
 
 def smoothness_cost(current: torch.Tensor,

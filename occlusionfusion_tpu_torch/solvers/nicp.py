@@ -2,7 +2,9 @@
 of ``occlusionfusion_tpu/solvers/nicp.py``).
 
 Per-node rotations R = exp(omega) and pivoted translations t are fitted
-by Adam over ARAP + landmark + motion costs, with the learning rate
+by Adam over ARAP + landmark + motion costs (and, where their weights are
+set, the truncated chamfer and the rendered silhouette and projective
+depth costs), with the learning rate
 decaying by ``gamma`` every step, for a static number of iterations.
 Adam is written out in tensor ops to optax's semantics
 (``optax.adam(exponential_decay(lr, 1, gamma))``: b1 0.9, b2 0.999, eps
@@ -14,8 +16,19 @@ reads a value back to the host and the solve can be captured in a CUDA
 graph. Gradients come from ``torch.autograd.grad`` on leaf tensors
 under ``torch.enable_grad()``; the result is detached.
 
-The truncated chamfer, silhouette and projective-depth costs are not
-ported: a non-zero weight raises ``NotImplementedError``.
+The chamfer cost compares random subsamples of the warped points and the
+targets. The JAX package draws them from ``PRNGKey(0)`` in every solve,
+a pair of index vectors per Adam step and one for the final loss, so
+every frame uses the same samples. The port keeps that: ``solve`` takes
+an index table [iters + 1, 2, S] (``chamfer_table``: the caller's, e.g.
+the JAX package's own indices, or ``default_chamfer_table``, drawn once
+from a ``torch.Generator`` seeded with 0) and draws nothing itself, so
+a captured solve replays the same samples.
+
+The rendered costs run only where the problem carries a target depth map
+and its intrinsics (``NICPProblem.target_depth``/``render_intrinsics``),
+as in the JAX package, whose fusion paths never set them (ROADMAP F14);
+the silhouette cost has no gradient (F15).
 """
 
 from __future__ import annotations
@@ -26,6 +39,7 @@ import torch
 
 from occlusionfusion_tpu_torch.geometry.edwarp import ed_warp
 from occlusionfusion_tpu_torch.geometry.so3 import so3_exp, so3_log
+from occlusionfusion_tpu_torch.ops.rasterize import render_depth
 from occlusionfusion_tpu_torch.solvers import losses
 
 ADAM_B1 = 0.9
@@ -68,6 +82,10 @@ class NICPProblem(NamedTuple):
     landmark_valid: torch.Tensor  # [L] bool gate or float weights
     motion_targets: torch.Tensor  # [N, 3]
     motion_confidence: torch.Tensor  # [N]
+    # the rendered costs' inputs (read only where w_silh or w_depth):
+    # fx, fy, cx, cy (floats or a [4] tensor) and the target depth [H, W]
+    render_intrinsics: tuple | torch.Tensor | None = None
+    target_depth: torch.Tensor | None = None
 
 
 class NICPResult(NamedTuple):
@@ -78,14 +96,32 @@ class NICPResult(NamedTuple):
     final_loss: torch.Tensor  # 0-d
 
 
-def check_config(config: NICPConfig) -> None:
-    for name in ("w_chamfer", "w_silh", "w_depth"):
-        if getattr(config, name):
-            raise NotImplementedError(f"NICPConfig.{name} > 0 is not ported")
+def chamfer_sizes(config: NICPConfig, n_source: int, n_target: int):
+    """(S, T): the chamfer subsample sizes of the warped points and the
+    targets."""
+    return (min(config.chamfer_samples, n_source),
+            min(config.chamfer_samples, n_target))
 
 
-def _objective(omega, t, problem: NICPProblem, config: NICPConfig):
-    """(total cost, warped source points)."""
+def default_chamfer_table(config: NICPConfig, n_source: int, n_target: int,
+                          device=None):
+    """[iters + 1, 2, max(S, T)] int64: per Adam step, then for the final
+    loss, S indices into the n_source points and T into the n_target
+    targets (the rest of a shorter row is 0), uniform, from a
+    ``torch.Generator`` seeded with 0."""
+    S, T = chamfer_sizes(config, n_source, n_target)
+    gen = torch.Generator().manual_seed(0)
+    rows = config.iters + 1
+    table = torch.zeros((rows, 2, max(S, T)), dtype=torch.int64)
+    table[:, 0, :S] = torch.randint(n_source, (rows, S), generator=gen)
+    table[:, 1, :T] = torch.randint(n_target, (rows, T), generator=gen)
+    return table.to(device)
+
+
+def _objective(omega, t, problem: NICPProblem, config: NICPConfig,
+               chamfer_idx=None):
+    """(total cost, warped source points); ``chamfer_idx`` [2, S] is this
+    evaluation's row of the chamfer table."""
     R = so3_exp(omega)
     warped = ed_warp(problem.source_points, problem.nodes, R, t,
                      problem.point_anchors, problem.point_weights)
@@ -101,15 +137,32 @@ def _objective(omega, t, problem: NICPProblem, config: NICPConfig):
         total = total + config.w_motion * losses.motion_cost(
             problem.nodes, t, problem.motion_targets,
             problem.motion_confidence, problem.node_valid)
+    if config.w_chamfer:
+        S, T = chamfer_sizes(config, problem.source_points.shape[0],
+                             problem.target_points.shape[0])
+        total = total + config.w_chamfer * losses.truncated_chamfer_cost(
+            warped, problem.target_points, chamfer_idx[0, :S],
+            chamfer_idx[1, :T], problem.point_valid, None,
+            config.chamfer_trunc)
+    if (config.w_silh or config.w_depth) and problem.target_depth is not None:
+        src_depth, src_mask = render_depth(
+            warped, tuple(problem.render_intrinsics), config.render_hw,
+            problem.point_valid)
+        if config.w_silh:
+            total = total + config.w_silh * losses.silhouette_cost(
+                src_mask, problem.target_depth > 0)
+        if config.w_depth:
+            total = total + config.w_depth * losses.projective_depth_cost(
+                src_depth, problem.target_depth)
     return total, warped
 
 
-def _grads(omega, t, problem, config):
+def _grads(omega, t, problem, config, chamfer_idx):
     """(loss, d loss / d omega, d loss / d t), all detached."""
     with torch.enable_grad():
         omega = omega.detach().requires_grad_(True)
         t = t.detach().requires_grad_(True)
-        loss, _ = _objective(omega, t, problem, config)
+        loss, _ = _objective(omega, t, problem, config, chamfer_idx)
         g = torch.autograd.grad(loss, (omega, t), allow_unused=True)
     g = [torch.zeros_like(x) if gx is None else gx for gx, x in zip(g, (omega, t))]
     return loss.detach(), g[0], g[1]
@@ -120,12 +173,20 @@ def solve(
     config: NICPConfig = NICPConfig(),
     init_rotations: torch.Tensor | None = None,
     init_translations: torch.Tensor | None = None,
+    chamfer_table: torch.Tensor | None = None,
 ) -> NICPResult:
     """``config.iters`` Adam steps from the warm start (omega =
     log(init_rotations), t = init_translations; zeros when not given).
     Padded nodes come back as the identity; invalid points keep their
-    source position."""
-    check_config(config)
+    source position. With ``w_chamfer`` the subsamples come from
+    ``chamfer_table`` (default: ``default_chamfer_table``, made here, so
+    a captured solve is given one)."""
+    if config.w_chamfer and chamfer_table is None:
+        chamfer_table = default_chamfer_table(
+            config, problem.source_points.shape[0],
+            problem.target_points.shape[0], problem.nodes.device)
+    rows = (chamfer_table if config.w_chamfer
+            else [None] * (config.iters + 1))
     nodes = problem.nodes
     dev, n = nodes.device, nodes.shape[0]
     if init_rotations is None:
@@ -142,8 +203,9 @@ def solve(
     count = torch.zeros((), dtype=torch.float32, device=dev)
     stopped = torch.zeros((), dtype=torch.bool, device=dev)
     history = []
-    for _ in range(config.iters):
-        loss, g_omega, g_t = _grads(params[0], params[1], problem, config)
+    for it in range(config.iters):
+        loss, g_omega, g_t = _grads(params[0], params[1], problem, config,
+                                    rows[it])
         count_inc = count + 1.0
         # the rate of this step, from the count before its increment
         step = -(config.lr * config.gamma ** count)
@@ -162,7 +224,8 @@ def solve(
         history.append(loss)
     omega, t = params
     with torch.no_grad():
-        final_loss, warped = _objective(omega, t, problem, config)
+        final_loss, warped = _objective(omega, t, problem, config,
+                                        rows[config.iters])
         R = so3_exp(omega)
     eye = torch.eye(3, dtype=torch.float32, device=dev)
     valid = problem.node_valid

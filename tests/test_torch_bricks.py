@@ -17,7 +17,7 @@ from occlusionfusion_tpu_torch.fusion import bricks as BR
 from occlusionfusion_tpu_torch.fusion import tsdf as T
 from occlusionfusion_tpu_torch.geometry.camera import Intrinsics
 from test_bricks import INTR, setup  # noqa: F401  (module fixture)
-from torch_port_impl import tt
+from torch_port_impl import one_torch_thread, tt  # noqa: F401
 
 INTR_T = Intrinsics(*(float(x) for x in INTR))
 

@@ -53,7 +53,11 @@ from occlusionfusion_tpu_torch.models.checkpoint import (
     pwc_params_from_jax,
 )
 from occlusionfusion_tpu_torch.ops.correlation import correlation_volume
-from torch_port_impl import textured_sphere_frames, tt
+from torch_port_impl import (  # noqa: F401 (an autouse fixture)
+    one_torch_thread,
+    textured_sphere_frames,
+    tt,
+)
 
 
 def nchw(x):

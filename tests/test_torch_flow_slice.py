@@ -40,7 +40,10 @@ from occlusionfusion_tpu_torch.models.checkpoint import (
 )
 from occlusionfusion_tpu_torch.solvers.gauss_newton import GNConfig
 from test_fusion_e2e import INTR, H, RADIUS, W, small_config
-from torch_port_impl import textured_sphere_frames
+from torch_port_impl import (  # noqa: F401 (an autouse fixture)
+    one_torch_thread,
+    textured_sphere_frames,
+)
 
 GN = dict(iters=6, w_point=1.0, w_arap=10.0, w_motion=1.0)
 BRICKS = dict(brick_size=8, max_bricks=256)

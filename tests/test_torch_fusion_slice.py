@@ -25,6 +25,7 @@ from occlusionfusion_tpu_torch.models.checkpoint import (
 )
 from occlusionfusion_tpu_torch.solvers.gauss_newton import GNConfig
 from test_fusion_e2e import INTR, make_sequence, small_config
+from torch_port_impl import one_torch_thread  # noqa: F401
 
 # the GN weights the JAX package derives from this config's N-ICP weights
 # (6 iterations, w_point 1, w_arap 10), with the motion prior switched on

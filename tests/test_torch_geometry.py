@@ -15,7 +15,7 @@ from occlusionfusion_tpu_torch.geometry import edwarp as E
 from occlusionfusion_tpu_torch.geometry import kabsch as K
 from occlusionfusion_tpu_torch.geometry import so3 as S
 from occlusionfusion_tpu_torch.ops import segment_ops as G
-from torch_port_impl import tt
+from torch_port_impl import one_torch_thread, tt  # noqa: F401
 
 
 @pytest.mark.parametrize("scale", [1e-6, 0.3, 2.0])

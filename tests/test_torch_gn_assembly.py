@@ -28,9 +28,10 @@ from occlusionfusion_tpu_torch.solvers.gauss_newton_dense import (
     solve_dense,
 )
 from test_gauss_newton import build_problem
-from torch_port_impl import (
+from torch_port_impl import (  # noqa: F401 (an autouse fixture)
     gn_problem_to_torch,
     hat_entry,
+    one_torch_thread,
     random_pose_field,
     tt,
 )

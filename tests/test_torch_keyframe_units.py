@@ -113,8 +113,7 @@ def test_pyramid_from_nodes_matches_jax(n, with_edges):
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
 
 
-@pytest.mark.parametrize("w_motion", [0.0, 0.5])
-def test_gn_solve_with_frozen_nodes_matches_jax(w_motion):
+def _frozen_gn_problem(w_motion):
     problem, _, _ = build_problem(n_pts=300, n_nodes=30, seed=4)
     rng = np.random.RandomState(5)
     frozen = rng.rand(30) < 0.3
@@ -124,8 +123,13 @@ def test_gn_solve_with_frozen_nodes_matches_jax(w_motion):
             rng.randn(30, 3).astype(np.float32) * 0.02),
         motion_confidence=jnp.asarray(rng.rand(30).astype(np.float32)))
     R0, t0 = random_pose_field(30, seed=6, rot=0.05, trans=0.01)
-    cfg_j = GNJ.GNConfig(iters=4, cg_iters=24, w_motion=w_motion)
-    cfg_t = GN.GNConfig(iters=4, cg_iters=24, w_motion=w_motion)
+    return problem, frozen, R0, t0
+
+
+def _assert_gn_solve_matches_jax(w_motion, **kw):
+    problem, frozen, R0, t0 = _frozen_gn_problem(w_motion)
+    cfg_j = GNJ.GNConfig(iters=4, cg_iters=24, w_motion=w_motion, **kw)
+    cfg_t = GN.GNConfig(iters=4, cg_iters=24, w_motion=w_motion, **kw)
     ref = GNJ.solve(problem, cfg_j, jnp.asarray(R0), jnp.asarray(t0))
     got = GN.solve(gn_problem_to_torch(problem), cfg_t, tt(R0), tt(t0))
     assert bool(got.valid) and bool(ref.valid)
@@ -140,9 +144,16 @@ def test_gn_solve_with_frozen_nodes_matches_jax(w_motion):
                                   t0[frozen])
 
 
+@pytest.mark.parametrize("w_motion", [0.0, 0.5])
+def test_gn_solve_with_frozen_nodes_matches_jax(w_motion):
+    _assert_gn_solve_matches_jax(w_motion)
+
+
 def test_gn_solve_rejects_the_preconditioner():
-    with pytest.raises(NotImplementedError, match="precondition"):
-        GN.check_config(GN.GNConfig(precondition=True))
+    """precondition=True is ported and no longer refused: the
+    block-Jacobi PCG with frozen nodes and a step length matches the JAX
+    package's as the plain CG does."""
+    _assert_gn_solve_matches_jax(0.5, precondition=True, step_length=0.8)
 
 
 def _growth_points(case):

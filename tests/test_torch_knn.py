@@ -18,7 +18,11 @@ from occlusionfusion_tpu_torch.ops.knn import (
     knn_cuda,
     knn_torch,
 )
-from torch_port_impl import assert_knn_equivalent, tt
+from torch_port_impl import (  # noqa: F401 (an autouse fixture)
+    assert_knn_equivalent,
+    one_torch_thread,
+    tt,
+)
 
 # d2 of points within ~1 m: f32 rounding of |q|^2 - 2 q.r + |r|^2
 ATOL = 1e-5

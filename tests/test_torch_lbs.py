@@ -17,7 +17,11 @@ from occlusionfusion_tpu_torch.ops.lbs import (
     lbs_warp_torch,
     pack_transforms,
 )
-from torch_port_impl import random_pose_field, tt
+from torch_port_impl import (  # noqa: F401 (an autouse fixture)
+    one_torch_thread,
+    random_pose_field,
+    tt,
+)
 
 TOL = 2e-4
 

@@ -18,7 +18,7 @@ from occlusionfusion_tpu_torch.models.checkpoint import (
     load_motion_complete_net,
     params_from_jax,
 )
-from torch_port_impl import tt
+from torch_port_impl import one_torch_thread, tt  # noqa: F401
 
 N0 = 128
 LEVELS = MR.level_sizes_for(N0)

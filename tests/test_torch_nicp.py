@@ -21,7 +21,12 @@ from occlusionfusion_tpu.solvers import losses as LJ
 from occlusionfusion_tpu.solvers import nicp as NJ
 from occlusionfusion_tpu_torch.solvers import losses as LT
 from occlusionfusion_tpu_torch.solvers import nicp as NT
-from torch_port_impl import one_torch_thread, random_pose_field, tt  # noqa: F401
+from torch_port_impl import (  # noqa: F401
+    jax_chamfer_table,
+    one_torch_thread,
+    random_pose_field,
+    tt,
+)
 
 COST_RTOL = 1e-6
 LOSS_RTOL = 1e-5
@@ -76,7 +81,8 @@ def build_problem(seed=0, n_pts=300, n_nodes=30, pad_nodes=6, pad_pts=20):
 
 def to_torch(problem):
     return NT.NICPProblem(**{
-        k: tt(getattr(problem, k)) for k in NT.NICPProblem._fields})
+        k: None if getattr(problem, k) is None else tt(getattr(problem, k))
+        for k in NT.NICPProblem._fields})
 
 
 def assert_cost(got, ref):
@@ -193,9 +199,22 @@ def test_solve_early_stop_freezes_like_jax():
 
 @pytest.mark.parametrize("name", ["w_chamfer", "w_silh", "w_depth"])
 def test_unported_terms_raise(name):
-    problem = to_torch(build_problem(0))
-    with pytest.raises(NotImplementedError):
-        NT.solve(problem, NT.NICPConfig(iters=1, **{name: 1.0}))
+    """The three weights no longer raise: each solve matches the JAX
+    package's, the chamfer on JAX's own subsamples, the rendered costs on
+    a problem without a target depth, as the fusion paths build it, where
+    both packages skip them (ROADMAP F14). The chamfer is truncated at
+    0.2 m^2: the padded targets sit at the origin, the centre of this
+    problem's sphere of radius 0.5 m, where every source point is a near
+    tie at 0.25 m^2 and the JAX package's own gradient differs between
+    its eager and its compiled program."""
+    problem = build_problem(0)
+    cfg = NT.NICPConfig(iters=10, chamfer_trunc=0.2, **{name: 1.0})
+    P = problem.source_points.shape[0]
+    table = (tt(jax_chamfer_table(cfg.iters, cfg.chamfer_samples, P, P))
+             if name == "w_chamfer" else None)
+    ref = NJ.solve(jax_problem(problem), cfg)
+    got = NT.solve(to_torch(problem), cfg, chamfer_table=table)
+    assert_result(ref, got)
 
 
 def test_config_defaults_match_jax():

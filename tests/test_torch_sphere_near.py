@@ -21,6 +21,7 @@ from occlusionfusion_tpu_torch.fusion.pipeline import DynamicFusion
 from occlusionfusion_tpu_torch.models.checkpoint import (
     load_motion_complete_net,
 )
+from torch_port_impl import one_torch_thread  # noqa: F401
 
 
 def _jax_config(cfg):

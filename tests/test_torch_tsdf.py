@@ -14,7 +14,7 @@ from occlusionfusion_tpu_torch.geometry.camera import (
     Intrinsics,
     backproject_depth,
 )
-from torch_port_impl import tt
+from torch_port_impl import one_torch_thread, tt  # noqa: F401
 
 H, W = 40, 48
 FX, FY, CX, CY = 60.0, 62.0, 23.5, 19.25

@@ -22,11 +22,34 @@ def gn_problem_to_torch(problem):
 
     f = {}
     for name in GNProblem._fields:
+        if getattr(problem, name) is None:
+            f[name] = None
+            continue
         a = np.array(getattr(problem, name))
         if a.dtype == np.int64:
             a = a.astype(np.int32)
         f[name] = torch.from_numpy(a)
     return GNProblem(**f)
+
+
+def jax_chamfer_table(iters, samples, n_source, n_target):
+    """The chamfer subsamples the JAX N-ICP draws from PRNGKey(0) in every
+    solve (one pair a step from ``split(key, iters)``, the final loss's
+    from the key itself), as the port's table [iters + 1, 2, max(S, T)]
+    (numpy int64)."""
+    import jax
+
+    key = jax.random.PRNGKey(0)
+    S, T = min(samples, n_source), min(samples, n_target)
+    keys = list(jax.random.split(key, iters)) + [key]
+    table = np.zeros((iters + 1, 2, max(S, T)), np.int64)
+    for i, k in enumerate(keys):
+        k1, k2 = jax.random.split(k)
+        table[i, 0, :S] = np.asarray(jax.random.randint(k1, (S,), 0,
+                                                        n_source))
+        table[i, 1, :T] = np.asarray(jax.random.randint(k2, (T,), 0,
+                                                        n_target))
+    return table
 
 
 def random_pose_field(n, seed, rot=0.3, trans=0.04):
