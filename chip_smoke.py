@@ -170,6 +170,27 @@ Phases, each printing one JSON line with its wall seconds:
      (run_fused with growth, brick refresh and keyframes), `recovery` (a
      lost track recovered with the matcher's feature seed) and `cluster`
      (a starved component frozen; K3' and K4' with frozen nodes).
+ 23. training: the four recipes of the port's trainers (flow: PWC +
+     MaskNet, 64x64, batch 4; tracking: train_flow.py --through_solver,
+     4 samples of 32 nodes and 512 matches, GN 3 iterations; motion:
+     caps 128,32,16,8, batch 8, history 16; lepard: lepard_bridge_r5e and
+     its config, the recipe's synthetic pair) from their starting
+     checkpoints on the JAX recipes' own batches
+     (reference/training_batches.npz): the step-0 loss, terms and global
+     gradient norm and the losses of 5 optimiser steps held to JAX's
+     (TRAINING_REFERENCE, scripts/torch_training_reference.py) within
+     TRAINING_TOLS, the loss falling, ms per step and peak memory; the
+     tracking recipe launches K3' and K4' 3 times per sample per step in
+     its forward and never in its backward (the autograd Functions of
+     ops/gn_assembly.py: kernel forward, the twin's vector-Jacobian
+     product backward), their gradients through a 3-iteration solve
+     held to the twins' autograd on its own GN input and on the main
+     path's frame-8 input (TRAINING_FUNCTION_TOL), one finite difference
+     along a random MaskNet direction (FD_TOL), a sample built on the
+     card by the port's generator (K1 in its skinning) against JAX's,
+     and K3'/K4' rows at the trainer's size; a trained flow checkpoint
+     reloaded through load_flow_nets bit for bit; each trainer's CLI 2
+     steps on the card.
 Each phase prints its wall seconds. Then one JSON line with the kernel
 table: every kernel on the main path's own inputs (K1 on each of its two
 calls), with its launches in the main path's run, on the headline's,
@@ -179,7 +200,8 @@ capture), the same on the perception path's own inputs with that run's
 launches (K3' on advect's fractional weights), and K1 and K2 on the
 N-ICP path's, with its launches, and K1 on each refresh's and growth's
 inputs of the keyframe path and K2 on its grown table, with that run's
-launches; then the
+launches, and K3' and K4' on the tracking trainer's GN input with the
+tracking recipe's launches; then the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises and exits
 nonzero. Without a CUDA device, or without the port's package beside
@@ -395,6 +417,95 @@ NICP_CHAMFER_REFERENCE = dict(
                              0.06823614984750748],
     n_correspondences=[8167, 8163, 8167, 8158, 8164, 8167, 8168, 8162, 8159,
                        8163, 8165, 8166, 8168, 8168, 8169, 8169])
+
+# phase training: the recipes of the port's trainers on the JAX
+# recipes' own batches (reference/training_batches.npz, the large float
+# inputs rounded to float16) and JAX's results on them
+# (TRAINING_REFERENCE, scripts/torch_training_reference.py, JAX on the
+# CPU): the step-0 loss, terms and global gradient norm, the losses of
+# TRAINING_STEPS optimiser steps on the one batch and the loss after them
+TRAINING_NPZ = os.path.join(HERE, "reference", "training_batches.npz")
+TRAINING_STEPS = 5
+TRAINING_REFERENCE = {
+ "flow": {
+  "loss0": 1.3176207542419434,
+  "terms0": {},
+  "grad_norm0": 18.095304489135742,
+  "losses": [
+   1.3176207542419434,
+   1.0938481092453003,
+   0.9655405879020691,
+   0.8965645432472229,
+   0.8580402731895447
+  ],
+  "final": 0.8333513140678406
+ },
+ "tracking": {
+  "loss0": 8.171183586120605,
+  "terms0": {
+   "flow": 1.5027827024459839,
+   "graph": 0.007478741463273764,
+   "mask": 0.5382667779922485,
+   "warp": 0.052022889256477356
+  },
+  "grad_norm0": 230.31228637695312,
+  "losses": [
+   8.171183586120605,
+   6.883746147155762,
+   6.63418436050415,
+   6.234538555145264,
+   6.095746040344238
+  ],
+  "final": 6.12106466293335,
+  "warp_mask_grad_norm": 0.08755742758512497
+ },
+ "motion": {
+  "loss0": 10.434221267700195,
+  "terms0": {},
+  "grad_norm0": 89.36670684814453,
+  "losses": [
+   10.434221267700195,
+   4.951197624206543,
+   3.22519588470459,
+   2.5069212913513184,
+   1.9856269359588623
+  ],
+  "final": 1.7673120498657227
+ },
+ "lepard": {
+  "loss0": 0.8880226612091064,
+  "terms0": {},
+  "grad_norm0": 2.273433208465576,
+  "losses": [
+   0.8880226612091064,
+   0.8880226612091064,
+   0.8822985291481018,
+   0.8715787529945374,
+   0.8572118282318115
+  ],
+  "final": 0.8411182761192322
+ },
+}
+# the relative gap to JAX a recipe's readings (step-0 loss, terms and
+# gradient norm, each step's loss and the final one) may take on the
+# card: ten times the largest such gap of the port's run on the CPU
+# against the same references (that gap in parentheses)
+TRAINING_TOLS = {
+    "flow": 1.73e-5,  # (1.73e-6, the trajectory)
+    "tracking": 3.35e-5,  # (3.35e-6, the trajectory)
+    "motion": 5.58e-4,  # (5.58e-5, the trajectory)
+    "lepard": 5.35e-5,  # (5.35e-6, the gradient norm)
+}
+# the Functions' gradients through a 3-iteration solve against the plain
+# twins' autograd, relative to each gradient's norm
+TRAINING_FUNCTION_TOL = 1e-4
+# the central difference of the solve's losses along a unit random
+# MaskNet direction, against the analytic directional derivative
+FD_STEP = 1e-2
+FD_TOL = 3e-2
+# train_flow.py --through_solver's solve: GN 3 iterations, w_arap 1
+TRACKING_GN_ITERS = 3
+
 
 KEYFRAME_FRAMES = 48
 KEYFRAME_TURN = 24
@@ -1450,15 +1561,18 @@ def check_tracking(fusion, state, info_np, centers, counts):
 class SolveTap:
     """Within the block, keeps the arguments of the ``at``-th call of the
     fused step's solver ``name`` (``solve_dense`` or ``nicp_solve``; that
-    is, of frame ``at``): (problem, config, R, t)."""
+    is, of frame ``at``), or of the solver a ``module`` imports by that
+    name: (problem, config, R, t)."""
 
-    def __init__(self, at, name="solve_dense"):
+    def __init__(self, at, name="solve_dense", module=None):
         self.at, self.name, self.calls, self.call = at, name, 0, None
+        self.module = module
 
     def __enter__(self):
         from occlusionfusion_tpu_torch.fusion import fused_step
 
-        self.mod, self.orig = fused_step, getattr(fused_step, self.name)
+        mod = self.module or fused_step
+        self.mod, self.orig = mod, getattr(mod, self.name)
 
         def tap(problem, config, init_rotations, init_translations, **kw):
             self.calls += 1
@@ -1468,7 +1582,7 @@ class SolveTap:
             return self.orig(problem, config, init_rotations,
                              init_translations, **kw)
 
-        setattr(fused_step, self.name, tap)
+        setattr(mod, self.name, tap)
         return self
 
     def __exit__(self, *exc):
@@ -4371,6 +4485,426 @@ def phase_nicp_costs(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase training: the four recipes of the port's trainers on JAX's batches
+
+
+def tracking_gn():
+    from occlusionfusion_tpu_torch.solvers.gauss_newton import GNConfig
+
+    return GNConfig(iters=TRACKING_GN_ITERS, w_arap=1.0)
+
+
+def load_training_batches(dev, path=TRAINING_NPZ):
+    """The recipes' batches of reference/training_batches.npz on ``dev``:
+    a FlowBatch, a stacked TrackingSample, eight MotionBatch samples and
+    one Lepard pair (with neutral bridge fields). Float16 arrays come back
+    as f32 (JAX's results are on those rounded values)."""
+    import numpy as np
+    import torch
+
+    from occlusionfusion_tpu_torch.models.flow_train import FlowBatch
+    from occlusionfusion_tpu_torch.models.motion_complete import PyramidBatch
+    from occlusionfusion_tpu_torch.models.motion_train import MotionBatch
+    from occlusionfusion_tpu_torch.models.tracking_train import TrackingSample
+    from occlusionfusion_tpu_torch.scripts.train_lepard import neutral_aux
+
+    data = np.load(path)
+
+    def t(key):
+        a = data[key]
+        if a.dtype == np.float16:
+            a = a.astype(np.float32)
+        return torch.from_numpy(a).to(dev)
+
+    flow = FlowBatch(**{f: t(f"flow/{f}") for f in FlowBatch._fields})
+    track = TrackingSample(**{f: t(f"tracking/{f}")
+                              for f in TrackingSample._fields})
+    pyr = {f: [t(f"motion/pyramid/{f}/{l}").long()
+               for l in range(4 if f.startswith("edge") else 3)]
+           for f in ("edge_src", "edge_dst", "edge_mask", "down_idx",
+                     "up_idx")}
+    pyr["edge_mask"] = [m.bool() for m in pyr["edge_mask"]]
+    node_mask = t("motion/pyramid/node_mask")
+    motion = []
+    for i in range(node_mask.shape[0]):
+        pyramid = PyramidBatch(
+            **{f: tuple(x[i] for x in v) for f, v in pyr.items()},
+            node_mask=node_mask[i])
+        motion.append(MotionBatch(
+            pos=t("motion/pos")[i], curr_motion=t("motion/curr_motion")[i],
+            history=t("motion/history")[i],
+            history_len=t("motion/history_len")[i].long(),
+            gt_motion=t("motion/gt_motion")[i],
+            node_mask=t("motion/node_mask")[i], pyramid=pyramid))
+    lep = tuple(t(f"lepard/{k}") for k in
+                ("src", "sm", "tgt", "tm", "cs", "ct", "cm"))
+    lep += tuple(torch.from_numpy(a).to(dev)
+                 for a in neutral_aux(lep[0].shape[0]))
+    return flow, track, motion, lep
+
+
+def training_recipes(dev):
+    """{recipe: (loss_fn() -> (loss, terms), parameters, optimizer,
+    nets)} for flow, tracking, motion and lepard on JAX's batches, from
+    the recipes' starting checkpoints."""
+    import torch
+
+    from occlusionfusion_tpu_torch.models import checkpoint as C
+    from occlusionfusion_tpu_torch.models.flow_train import flow_loss_fn
+    from occlusionfusion_tpu_torch.models.motion_train import batched_loss
+    from occlusionfusion_tpu_torch.models.optim import (
+        Adam,
+        warmup_cosine_decay_schedule,
+    )
+    from occlusionfusion_tpu_torch.models.tracking_train import batch_loss
+    from occlusionfusion_tpu_torch.scripts.train_lepard import lepard_loss
+
+    flow, track, motion, lep = load_training_batches(dev)
+    out = {}
+    pwc, mask = C.load_flow_nets(device=dev)
+    params = [*pwc.parameters(), *mask.parameters()]
+    out["flow"] = (lambda: (flow_loss_fn(pwc, mask, flow), {}), params,
+                   Adam(params, 1e-4), (pwc, mask))
+    tpwc, tmask = C.load_flow_nets(device=dev)
+    tparams = [*tpwc.parameters(), *tmask.parameters()]
+    out["tracking"] = (lambda: batch_loss(tpwc, tmask, track, tracking_gn()),
+                       tparams, Adam(tparams, 1e-4), (tpwc, tmask))
+    # train mode: cuDNN's LSTM backward runs in training mode only
+    net = C.load_motion_complete_net(device=dev).train()
+    out["motion"] = (lambda: (batched_loss(net, motion), {}),
+                     list(net.parameters()),
+                     Adam(net.parameters(), 1e-3), (net,))
+    lnet, _ = C.load_lepard_checkpoint(
+        os.path.join(HERE, "checkpoints", "lepard_bridge_r5e.npz"),
+        device=dev)
+    # train_lepard.py's defaults: 2000 steps, 100 of warm-up, lr 3e-4
+    schedule = warmup_cosine_decay_schedule(0.0, 3e-4, 100, 2000,
+                                            3e-4 * 0.02)
+    out["lepard"] = (lambda: (lepard_loss(lnet, *lep), {}),
+                     list(lnet.parameters()),
+                     Adam(lnet.parameters(), schedule, weight_decay=1e-5,
+                          clip_norm=1.0), (lnet,))
+    return out, track
+
+
+def run_recipe(loss_fn, params, opt, dev):
+    """Step 0 (loss, terms, global gradient norm), then TRAINING_STEPS
+    optimiser steps on the same batch (the losses they return, each at
+    the parameters before its update) and the loss after the last; ms per
+    step (host clock ending in a synchronize where on the card)."""
+    import torch
+
+    from occlusionfusion_tpu_torch.models.optim import global_norm
+
+    def sync():
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+
+    loss0, terms0 = loss_fn()
+    loss0.backward()
+    grads = [p.grad for p in params if p.grad is not None]
+    out = {"loss0": loss0.item(), "terms0": {k: v.item() for k, v in
+                                             terms0.items()},
+           "grad_norm0": float(global_norm(grads))}
+    losses, ms = [], []
+    for _ in range(TRAINING_STEPS):
+        sync()
+        t = time.perf_counter()
+        opt.zero_grad()
+        loss, _ = loss_fn()
+        loss.backward()
+        opt.step()
+        sync()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(loss.item())
+    with torch.no_grad():
+        out["final"] = float(loss_fn()[0])
+    out.update(losses=losses, ms_per_step=ms)
+    return out
+
+
+def training_gaps(got, ref):
+    """Relative gaps of a recipe's readings to JAX's: step-0 loss, each
+    term, gradient norm, and the largest over the trajectory (the 5
+    steps' losses and the final one)."""
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-12)
+
+    traj = [rel(a, b) for a, b in zip(got["losses"] + [got["final"]],
+                                      ref["losses"] + [ref["final"]])]
+    return {"loss0": rel(got["loss0"], ref["loss0"]),
+            "terms0": max([rel(got["terms0"][k], v)
+                           for k, v in ref["terms0"].items()] or [0.0]),
+            "grad_norm0": rel(got["grad_norm0"], ref["grad_norm0"]),
+            "trajectory": max(traj)}
+
+
+def twin_assembly():
+    """Within the block the differentiable solve assembles with the plain
+    twins under autograd (no kernel): the reference the Functions'
+    gradients are held to."""
+    import contextlib
+
+    import torch
+
+    from occlusionfusion_tpu_torch.ops import gn_assembly as GA
+    from occlusionfusion_tpu_torch.solvers import gauss_newton_dense as GND
+
+    def twin(problem, terms, R, t):
+        n = problem.nodes.shape[0]
+        dev = problem.nodes.device
+        M = torch.zeros((6 * n, 6 * n), device=dev)
+        b = torch.zeros(6 * n, device=dev)
+        sq = torch.zeros((), device=dev)
+        GA.point_term_accumulate_torch(
+            problem.source_points, problem.target_points,
+            problem.point_valid, problem.point_anchors,
+            problem.point_weights, problem.nodes, R, t, terms.sw, M, b, sq,
+            proj=terms.proj)
+        GA.arap_term_accumulate_torch(problem.nodes, R, t, terms.edges,
+                                      terms.wa, terms.wm,
+                                      problem.motion_targets, M, b, sq)
+        return M, b, sq
+
+    @contextlib.contextmanager
+    def patched():
+        orig = GND._assemble_differentiable
+        GND._assemble_differentiable = twin
+        try:
+            yield
+        finally:
+            GND._assemble_differentiable = orig
+
+    return patched()
+
+
+def solve_gradients(call, twin: bool, iters=3, seed=0):
+    """Gradients of a fixed random linear functional of a differentiable
+    solve's warped points and node translations with respect to the
+    targets and the point weights (what the trainer differentiates),
+    through the autograd Functions (K3'/K4' forward) or, with ``twin``,
+    through the plain twins' autograd."""
+    import contextlib
+
+    import torch
+
+    from occlusionfusion_tpu_torch.solvers.gauss_newton_dense import (
+        solve_dense,
+    )
+
+    problem, config, R, t = call
+    g = torch.Generator(device=problem.nodes.device).manual_seed(seed)
+    tg = problem.target_points.clone().requires_grad_()
+    pv = problem.point_valid.clone().requires_grad_()
+    p = problem._replace(target_points=tg, point_valid=pv)
+    with twin_assembly() if twin else contextlib.nullcontext():
+        res = solve_dense(p, config._replace(iters=iters), R, t)
+    wp = torch.randn(res.warped_points.shape, generator=g,
+                     device=tg.device)
+    wt = torch.randn(res.translations.shape, generator=g, device=tg.device)
+    loss = torch.sum(res.warped_points * wp) + torch.sum(
+        res.translations * wt)
+    return torch.autograd.grad(loss, (tg, pv))
+
+
+def functions_vs_twin(label, call):
+    """The Functions' gradients through a 3-iteration solve against the
+    twins' autograd: the largest relative gap (to each gradient's norm)."""
+    got = solve_gradients(call, twin=False)
+    ref = solve_gradients(call, twin=True)
+    gaps = [float((a - b).norm() / b.norm()) for a, b in zip(got, ref)]
+    emit({"phase": "training_gradcheck", "input": label,
+          "rel_gaps": dict(zip(("targets", "point_valid"), gaps))})
+    assert max(gaps) <= TRAINING_FUNCTION_TOL, (label, gaps)
+    return max(gaps)
+
+
+def tracking_card_checks(dev, track, main_call):
+    """On the card: one sample built by the port's generator (K1 in its
+    skinning) against JAX's first sample; the warp term's gradient on
+    MaskNet (through the solve only) against JAX's; a finite difference
+    of the solve's losses along a random MaskNet direction; the
+    Functions' gradients against the twins' on the trainer's GN input and
+    on the main path's frame-8 input; K3'/K4' rows at the trainer's size."""
+    import numpy as np
+    import torch
+
+    from occlusionfusion_tpu_torch import device as D
+    from occlusionfusion_tpu_torch.models import tracking_train as TT
+    from occlusionfusion_tpu_torch.models.checkpoint import load_flow_nets
+    from occlusionfusion_tpu_torch.models.deform_loss import DeformLossWeights
+    from occlusionfusion_tpu_torch.models.optim import global_norm
+    from occlusionfusion_tpu_torch.models.tracking_train import (
+        synthetic_tracking_sample,
+        tracking_loss,
+        unstack,
+    )
+
+    tpwc, tmask = load_flow_nets(device=dev)  # the recipe's start
+
+    D.reset_launch_counts()
+    built = synthetic_tracking_sample(np.random.RandomState(0), n_nodes=32,
+                                      n_matches=512, device=dev)
+    torch.cuda.synchronize()
+    k1 = D.launch_counts["knn"]
+    assert k1 == 1, D.launch_counts
+    first = unstack(track)[0]
+    for f in ("anchors", "edges", "match_idx", "match_valid", "nodes",
+              "source_points"):
+        assert torch.equal(getattr(built, f), getattr(first, f)), f
+    w_gap = float((built.skin_weights - first.skin_weights).abs().max())
+    assert w_gap <= 1e-6, w_gap
+
+    ref = TRAINING_REFERENCE["tracking"]
+    gn = tracking_gn()
+    warp = tracking_loss(tpwc, tmask, first, gn)[1]["warp"]
+    grads = torch.autograd.grad(warp, list(tmask.parameters()))
+    warp_norm = float(global_norm(grads))
+    warp_gap = abs(warp_norm - ref["warp_mask_grad_norm"]) / ref[
+        "warp_mask_grad_norm"]
+    assert warp_norm > 0 and warp_gap <= TRAINING_TOLS["tracking"], (
+        warp_norm, ref["warp_mask_grad_norm"])
+
+    solve_only = DeformLossWeights(lambda_flow=0.0, lambda_graph=1.0,
+                                   lambda_warp=1.0, lambda_mask=0.0)
+    params = list(tmask.parameters())
+    g = torch.Generator(device=dev).manual_seed(1)
+    direction = [torch.randn(p.shape, generator=g, device=dev)
+                 for p in params]
+    scale = 1.0 / float(global_norm(direction))
+    direction = [d * scale for d in direction]
+
+    def loss_at(step):
+        """The solve's losses with MaskNet moved by ``step`` along the
+        direction (no gradient: the kernels' in-place path)."""
+        with torch.no_grad():
+            for p, d in zip(params, direction):
+                p.add_(d, alpha=step)
+            try:
+                return float(tracking_loss(tpwc, tmask, first, gn,
+                                           solve_only)[0])
+            finally:
+                for p, d in zip(params, direction):
+                    p.sub_(d, alpha=step)
+
+    loss = tracking_loss(tpwc, tmask, first, gn, solve_only)[0]
+    ggrads = torch.autograd.grad(loss, params)
+    analytic = float(sum(torch.sum(a * d) for a, d in zip(ggrads, direction)))
+    fd = (loss_at(FD_STEP) - loss_at(-FD_STEP)) / (2 * FD_STEP)
+    fd_gap = abs(analytic - fd) / max(abs(fd), 1e-12)
+    emit({"phase": "training_fd", "analytic": analytic, "fd": fd,
+          "rel_gap": fd_gap, "step": FD_STEP})
+    assert analytic != 0.0 and fd_gap <= FD_TOL, (analytic, fd)
+
+    with SolveTap(1, module=TT) as tap, torch.no_grad():
+        tracking_loss(tpwc, tmask, first, gn)
+    fn_gaps = {"tracking_sample_0": functions_vs_twin("tracking_sample_0",
+                                                     tap.call)}
+    fn_gaps[f"main_path_frame_{TAP_FRAME}"] = functions_vs_twin(
+        f"main_path_frame_{TAP_FRAME}", main_call)
+    rows = gn_kernel_rows("tracking_trainer_sample_0",
+                          *gn_path_inputs(tap.call)[:2])
+    return rows, {"k1_launches_building_a_sample": k1,
+                  "skin_weight_gap": w_gap, "warp_mask_grad_norm": warp_norm,
+                  "warp_mask_grad_gap": warp_gap, "fd_rel_gap": fd_gap,
+                  "function_vs_twin_gaps": fn_gaps}
+
+
+def phase_training(dev, main_call):
+    """Each recipe on JAX's batch: step 0 held to JAX (loss, terms,
+    gradient norm within TRAINING_TOLS), 5 optimiser steps (the loss
+    falls; each step's loss within the band), ms per step and peak
+    memory; the tracking recipe's K3'/K4' launches (TRACKING_GN_ITERS per
+    sample per step in the forward, none in the backward) and its card
+    checks; a trained flow checkpoint reloaded bit for bit; then each
+    CLI 2 steps on the card. Returns (the tracking run's launches, the
+    K3'/K4' rows at the trainer's size)."""
+    import tempfile
+
+    import torch
+
+    from occlusionfusion_tpu_torch import device as D
+    from occlusionfusion_tpu_torch.models import checkpoint as C
+    from occlusionfusion_tpu_torch.scripts import (
+        train_flow,
+        train_lepard,
+        train_motion,
+    )
+    from occlusionfusion_tpu_torch.utils.snapshot import save_pytree
+
+    recipes, track = training_recipes(dev)
+    counts = None
+    n_samples = track.nodes.shape[0]
+    for name, (loss_fn, params, opt, nets) in recipes.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        if name == "tracking":
+            D.reset_launch_counts()
+            loss, _ = loss_fn()
+            fwd = dict(D.launch_counts)
+            loss.backward()
+            torch.cuda.synchronize()
+            assert D.launch_counts == fwd, (fwd, D.launch_counts)
+            per = TRACKING_GN_ITERS * n_samples
+            assert fwd["point_term_blocks"] == per, fwd
+            assert fwd["arap_term_blocks"] == per, fwd
+            for p in params:
+                p.grad = None
+            D.reset_launch_counts()
+        got = run_recipe(loss_fn, params, opt, dev)
+        if name == "tracking":
+            counts = dict(D.launch_counts)
+            # step 0, the steps and the final loss: one forward each
+            assert counts["point_term_blocks"] == (
+                per * (TRAINING_STEPS + 2)), counts
+        ref = TRAINING_REFERENCE[name]
+        gaps = training_gaps(got, ref)
+        tol = TRAINING_TOLS[name]
+        emit({"phase": "training_recipe", "recipe": name,
+              "s": time.perf_counter() - t, **got, "reference": ref,
+              "gaps": gaps, "tolerances": tol,
+              "ms_per_step_median": sorted(got["ms_per_step"])[
+                  TRAINING_STEPS // 2],
+              "peak_mem_bytes": int(torch.cuda.max_memory_allocated())})
+        for k, gap in gaps.items():
+            assert gap <= tol, (name, k, gap, tol)
+        assert got["final"] < got["loss0"], (name, got)
+        if name == "flow":
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "flow.npz")
+                save_pytree(path, train_flow.flow_checkpoint(*nets))
+                pwc2, mask2 = C.load_flow_nets(path, device="cpu")
+            for net, back in zip(nets, (pwc2, mask2)):
+                sd = back.state_dict()
+                for k, v in net.state_dict().items():
+                    assert torch.equal(v.cpu(), sd[k]), k
+        if name == "tracking":
+            rows, checks = tracking_card_checks(dev, track, main_call)
+            emit({"phase": "training_tracking_checks", **checks})
+    del recipes
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clis = (
+            (train_flow, ["--with_mask", "--log_every", "1"]),
+            (train_flow, ["--through_solver", "--batch", "2",
+                          "--eval_pairs", "1", "--log_every", "1"]),
+            (train_motion, ["--synthetic_clips", "2", "--eval_every", "1"]),
+            (train_lepard, ["--eval_every", "1"]),
+        )
+        for i, (mod, extra) in enumerate(clis):
+            t = time.perf_counter()
+            out = os.path.join(tmp, f"cli_{i}.npz")
+            mod.main(["--steps", "2", "--device", str(dev), "--out", out]
+                     + extra)
+            torch.cuda.synchronize()
+            assert os.path.exists(out), out
+            emit({"phase": "training_cli", "cli": mod.__name__,
+                  "args": extra, "s": time.perf_counter() - t})
+    return counts, rows
+
+
 def main(argv) -> int:
     t_all = time.perf_counter()
     import torch
@@ -4536,6 +5070,14 @@ def main(argv) -> int:
     t = time.perf_counter()
     phase_parity(dev, ("keyframe", "recovery", "cluster"))
     emit({"phase": "parity_keyframe_done", "s": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    counts, train_rows = phase_training(dev, solver_call)
+    for row in train_rows:
+        row["launches"] = counts[row["name"]]
+        emit({"phase": "kernel", **row})
+    rows += train_rows
+    emit({"phase": "training_done", "s": time.perf_counter() - t})
 
     t = time.perf_counter()
     phase_gn_solvers(dev, solver_call)

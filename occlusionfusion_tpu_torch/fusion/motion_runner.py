@@ -59,6 +59,53 @@ def init_state(n0: int, device=None) -> MotionRunnerState:
     )
 
 
+def pad_pyramid(nn_indexes, down_idxs, up_idxs, level_sizes=LEVEL_SIZES):
+    """A frame's graph pyramid padded on the host to the static buckets,
+    as the JAX ``pad_pyramid``: a ``PyramidBatch`` of numpy int32 / bool
+    arrays (``pyramid_to_torch`` moves it to a device). ``nn_indexes[l]``
+    is level l's [n_l, k_l] neighbour table (-1 for a missing
+    neighbour); edges run node -> neighbour."""
+    edge_src, edge_dst, edge_mask = [], [], []
+    for l, nn in enumerate(nn_indexes):
+        n_l, k_l = nn.shape
+        cap = level_sizes[l]
+        dst = np.zeros((cap, k_l), np.int32)
+        dst[:n_l] = np.maximum(nn.astype(np.int32), 0)
+        mask = np.zeros((cap, k_l), bool)
+        mask[:n_l] = nn >= 0
+        edge_src.append(np.repeat(np.arange(cap, dtype=np.int32), k_l))
+        edge_dst.append(dst.reshape(-1))
+        edge_mask.append(mask.reshape(-1))
+
+    def padded(idxs, caps):
+        out = []
+        for d, cap in zip(idxs, caps):
+            arr = np.zeros((cap,), np.int32)
+            arr[: d.shape[0]] = d.astype(np.int32)
+            out.append(arr)
+        return tuple(out)
+
+    node_mask = np.zeros((level_sizes[0],), bool)
+    node_mask[: nn_indexes[0].shape[0]] = True
+    return PyramidBatch(
+        edge_src=tuple(edge_src), edge_dst=tuple(edge_dst),
+        edge_mask=tuple(edge_mask),
+        down_idx=padded(down_idxs, level_sizes[1:]),
+        up_idx=padded(up_idxs, level_sizes[:3]), node_mask=node_mask,
+    )
+
+
+def pyramid_to_torch(pyramid: PyramidBatch, device=None) -> PyramidBatch:
+    """A numpy ``PyramidBatch`` (``pad_pyramid``) as tensors on
+    ``device``, index arrays as int64."""
+    def t(a):
+        a = torch.as_tensor(np.asarray(a), device=device)
+        return a if a.dtype == torch.bool else a.long()
+
+    return PyramidBatch(*(tuple(t(x) for x in f) if isinstance(f, tuple)
+                          else t(f) for f in pyramid))
+
+
 def _masked_std(x, mask):
     """Mean over columns of the population std over masked rows."""
     count = torch.clamp(torch.sum(mask), min=1).to(x.dtype)

@@ -276,3 +276,110 @@ def load_lepard_checkpoint(npz_path: str | None = None, device=None,
     net = LepardNet(config)
     net.load_state_dict(lepard_params_from_jax(tree))
     return net.to(resolve_device(device)).eval(), config
+
+
+# ---------------------------------------------------------------------------
+# the other direction: a module's parameters as the JAX package's tree
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy().astype(np.float32)
+
+
+def params_to_jax(net) -> Dict[str, Any]:
+    """The motion-completion net's parameters as the JAX package's nested
+    tree (numpy leaves): the inverse of ``params_from_jax``."""
+    return nest_flat_dict({k: _np(v) for k, v in net.state_dict().items()})
+
+
+def _conv_tree(sd, prefix: str) -> Dict[str, np.ndarray]:
+    """A ``Conv``'s weight [O, I, kh, kw] as a JAX conv {"w": HWIO, "b"}."""
+    w = _np(sd[f"{prefix}.weight"]).transpose(2, 3, 1, 0)
+    return {"w": np.ascontiguousarray(w), "b": _np(sd[f"{prefix}.bias"])}
+
+
+def _deconv_tree(sd, prefix: str) -> Dict[str, np.ndarray]:
+    """A ``Deconv``'s flipped weight [I, O, kh, kw] as the JAX transposed
+    conv {"w": HWIO, "b"} (the inverse of ``_deconv_state``)."""
+    w = _np(sd[f"{prefix}.weight"])[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+    return {"w": np.ascontiguousarray(w), "b": _np(sd[f"{prefix}.bias"])}
+
+
+def pwc_params_to_jax(net) -> Dict[str, Any]:
+    """A ``PWCNet``'s parameters as the JAX PWC-Net tree (decoders keyed by
+    level as ints): the inverse of ``pwc_params_from_jax``."""
+    sd = net.state_dict()
+    tree: Dict[str, Any] = {
+        "extractor": [[_conv_tree(sd, f"extractor.{l}.{c}") for c in range(3)]
+                      for l in range(len(net.extractor))],
+        "decoders": {},
+        "refiner": [_conv_tree(sd, f"refiner.{c}")
+                    for c in range(len(net.refiner))],
+    }
+    for lvl, dec in net.decoders.items():
+        d = {"convs": [_conv_tree(sd, f"decoders.{lvl}.convs.{c}")
+                       for c in range(len(dec.convs))],
+             "flow": _conv_tree(sd, f"decoders.{lvl}.flow")}
+        for name in ("upflow", "upfeat"):
+            if hasattr(dec, name):
+                d[name] = _deconv_tree(sd, f"decoders.{lvl}.{name}")
+        tree["decoders"][int(lvl)] = d
+    return tree
+
+
+def masknet_params_to_jax(net) -> Dict[str, Any]:
+    """A ``MaskNet``'s parameters as the JAX MaskNet tree."""
+    sd = net.state_dict()
+    return {
+        "upconv1": _deconv_tree(sd, "upconv1"),
+        "upconv2": _deconv_tree(sd, "upconv2"),
+        "conv_in": _conv_tree(sd, "conv_in"),
+        "res": [[_conv_tree(sd, f"res.{r}.{c}") for c in range(2)]
+                for r in range(len(net.res))],
+        "out": _conv_tree(sd, "out"),
+    }
+
+
+def _listify(tree):
+    """Nested dicts whose keys are all digits as lists, a missing index
+    (a positioning layer, which holds no parameters) as {}."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _listify(v) for k, v in tree.items()}
+    if out and all(k.isdigit() for k in out):
+        return [out.get(str(i), {}) for i in range(max(map(int, out)) + 1)]
+    return out
+
+
+def lepard_params_to_jax(net) -> Dict[str, Any]:
+    """A ``LepardNet``'s parameters as the JAX Lepard tree (lists where the
+    JAX init has lists, {} for the positioning layers): the inverse of
+    ``lepard_params_from_jax``."""
+    return _listify(nest_flat_dict(
+        {k: _np(v) for k, v in net.state_dict().items()}))
+
+
+def _config_dict(nt) -> Dict[str, Any]:
+    d = {}
+    for k, v in nt._asdict().items():
+        if hasattr(v, "_asdict"):
+            d[k] = _config_dict(v)
+        elif isinstance(v, (tuple, list)):
+            d[k] = list(v)
+        else:
+            d[k] = v
+    return d
+
+
+def save_lepard_checkpoint(npz_path: str, net, config) -> None:
+    """Matcher weights (npz, the JAX ``save_pytree`` layout) and the
+    ``LepardConfig`` that rebuilds the static pyramid and transformer
+    shapes (the ``.json`` side-car), as the JAX
+    ``save_lepard_checkpoint`` writes them."""
+    import json
+
+    from occlusionfusion_tpu_torch.utils.snapshot import save_pytree
+
+    save_pytree(npz_path, lepard_params_to_jax(net))
+    with open(npz_path + ".json", "w") as fh:
+        json.dump(_config_dict(config), fh, indent=1)

@@ -20,9 +20,11 @@ voxel's points with ``index_add_``, which adds in index order on the CPU
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -34,11 +36,15 @@ _U32 = 0xFFFFFFFF
 
 def kernel_points(num_points: int = 15, radius: float = 1.0,
                   layout: str = "fibonacci") -> torch.Tensor:
-    """[K, 3] kernel disposition: the centre, then a Fibonacci-sphere
-    shell at 0.66 (the layout the shipped checkpoints use)."""
+    """[K, 3] kernel disposition, the first point at the centre:
+    ``"fibonacci"``, a Fibonacci-sphere shell at 0.66 (the layout the
+    shipped checkpoints use), or ``"lloyd"``, the reference's Lloyd-relaxed
+    dispositions over the unit ball (``_lloyd_dispositions``)."""
+    if layout == "lloyd":
+        return torch.from_numpy(_lloyd_dispositions(num_points)) * radius
     if layout != "fibonacci":
-        raise NotImplementedError(f"kp_layout={layout!r} is not ported "
-                                  "(fibonacci only)")
+        raise ValueError(f"kp_layout must be fibonacci or lloyd, got "
+                         f"{layout!r}")
     n_shell = num_points - 1
     i = torch.arange(n_shell, dtype=torch.float32)
     golden = (1 + 5**0.5) / 2
@@ -48,6 +54,30 @@ def kernel_points(num_points: int = 15, radius: float = 1.0,
     shell = torch.stack([r * torch.cos(theta), r * torch.sin(theta), z], -1)
     pts = torch.cat([torch.zeros((1, 3)), shell * 0.66])
     return pts * radius
+
+
+@functools.lru_cache(maxsize=None)
+def _lloyd_dispositions(num_points: int) -> np.ndarray:
+    """Lloyd (centroidal Voronoi) relaxation of ``num_points`` sites over
+    the unit ball, site 0 pinned at the origin: the JAX package's numpy
+    mirror of the reference's ``spherical_Lloyd``
+    (``lepard/kernels/kernel_points.py:66``, fixed="center"), the same
+    draws from ``RandomState(1337)`` and the same float64 arithmetic, so
+    the result equals the JAX package's bit for bit. f32 [K, 3]."""
+    rng = np.random.RandomState(1337)
+    v = rng.randn(20000, 3)
+    v /= np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-9)
+    cloud = (v * rng.rand(20000, 1) ** (1.0 / 3.0)).astype(np.float64)
+    pts = cloud[rng.choice(len(cloud), num_points, replace=False)].copy()
+    pts[0] = 0.0
+    for _ in range(60):
+        d2 = ((cloud[:, None] - pts[None]) ** 2).sum(-1)
+        assign = d2.argmin(1)
+        for k in range(1, num_points):
+            m = assign == k
+            if m.any():
+                pts[k] = cloud[m].mean(0)
+    return pts.astype(np.float32)
 
 
 def grid_subsample(points, valid, voxel: float, max_out: int):
@@ -127,6 +157,37 @@ class PyramidConfig(NamedTuple):
     first_voxel: float = 0.025
     radius_scale: float = 2.5
     max_neighbors: Sequence[int] = (26, 28, 30, 30)
+
+
+def calibrate_neighbor_limits(clouds, config: PyramidConfig,
+                              keep_ratio: float = 0.8, hist_cap: int = 64,
+                              samples_threshold: int = 2000) -> PyramidConfig:
+    """``config`` with per-level ``max_neighbors`` calibrated from sample
+    clouds (an iterable of (points [P, 3], valid [P]) arrays), as the
+    reference's ``calibrate_neighbors`` (``lepard/datasets/
+    dataloader.py:563-590``) and the JAX function: the pyramid built with
+    ``hist_cap`` slots, a histogram of the true radius-neighbourhood sizes
+    of the valid points per level, and each level's limit the count below
+    which ``keep_ratio`` of that neighbour mass lies. Stops once every
+    level has seen ``samples_threshold`` neighbourhoods. The pyramids are
+    built on the CPU."""
+    n_levels = len(config.level_sizes)
+    hists = np.zeros((n_levels, hist_cap + 1), np.int64)
+    probe = config._replace(max_neighbors=(hist_cap,) * n_levels)
+    for pts, vld in clouds:
+        levels = build_pyramid(torch.as_tensor(np.asarray(pts, np.float32)),
+                               torch.as_tensor(np.asarray(vld, bool)), probe)
+        for l, lev in enumerate(levels):
+            S = lev.points.shape[0]
+            counts = torch.sum(lev.neighbors < S, dim=1).numpy()
+            counts = counts[lev.valid.numpy()]
+            hists[l] += np.bincount(np.clip(counts, 0, hist_cap),
+                                    minlength=hist_cap + 1)
+        if hists.sum(axis=1).min() > samples_threshold:
+            break
+    cumsum = np.cumsum(hists.T, axis=0)
+    limits = np.maximum(np.sum(cumsum < keep_ratio * cumsum[-1], axis=0), 1)
+    return config._replace(max_neighbors=tuple(int(x) for x in limits))
 
 
 def build_pyramid(points, valid, config: PyramidConfig):
@@ -271,6 +332,14 @@ class KPFCNConfig(NamedTuple):
     pyramid: PyramidConfig = PyramidConfig()
 
 
+def full_depth_config(**overrides) -> KPFCNConfig:
+    """The reference-depth KPFCN (``lepard/configs/models.py:3-21``):
+    three strided stages of two resnetb blocks, the decoder upsampling
+    once, so the coarse output sits at pyramid level 2."""
+    return KPFCNConfig(blocks_per_stage=2, num_stages=3, coarse_upsamples=1,
+                       **overrides)
+
+
 class _Stage(nn.Module):
     def __init__(self, cin: int, cout: int, blocks: int, K: int):
         super().__init__()
@@ -345,3 +414,20 @@ def kpfcn_encode(net: KPFCN, levels, batch: int = 1):
         x = torch.cat([x[lvl.up], skips[coarse_idx]], dim=-1)
         x = _lrelu(_group_norm(lin(x), lvl.valid, batch=batch))
     return net.out(x), levels[coarse_idx]
+
+
+def init_kpfcn_(net: KPFCN, generator: torch.Generator | None = None):
+    """Initialise a KPFCN in place with the JAX ``init_kpfcn_params``'s
+    per-tensor scale (not its draws): linear weights N(0, 2 / C_in), KPConv
+    weights N(0, 2 / (K C_in)), zero biases."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, Linear):
+                m.w.normal_(generator=generator).mul_(
+                    (2.0 / m.w.shape[0]) ** 0.5)
+                m.b.zero_()
+            elif isinstance(m, KernelWeights):
+                K, cin = m.weights.shape[:2]
+                m.weights.normal_(generator=generator).mul_(
+                    (2.0 / (K * cin)) ** 0.5)
+    return net

@@ -49,6 +49,22 @@ class LepardNet(nn.Module):
         self.reposition = TR.RepositionTransformer(config.reposition)
 
 
+def init_lepard(config: LepardConfig = LepardConfig(),
+                generator: torch.Generator | None = None,
+                device=None) -> LepardNet:
+    """A freshly initialised matcher with the JAX ``init_lepard_params``'s
+    layout and per-tensor scale (not its draws): the KPFCN's, the
+    projection N(0, 1 / out_dim), the transformer's."""
+    net = LepardNet(config)
+    K.init_kpfcn_(net.kpfcn, generator)
+    with torch.no_grad():
+        net.proj.w.normal_(generator=generator).mul_(
+            (1.0 / net.proj.w.shape[0]) ** 0.5)
+        net.proj.b.zero_()
+    TR.init_reposition_(net.reposition, generator)
+    return net.to(device)
+
+
 class LepardMatches(NamedTuple):
     src_points: torch.Tensor  # [S, 3] coarse source points
     tgt_points: torch.Tensor  # [T, 3] coarse target points

@@ -161,3 +161,24 @@ def motion_complete_forward(net: MotionCompleteNet, curr_pos, curr_motion,
     pred = net.lin(out)
     sigma = F.softplus(pred[:, -1:])
     return torch.cat([pred[:, :3], sigma], dim=-1)
+
+
+def init_motion_complete_net(generator: torch.Generator | None = None,
+                             device=None) -> MotionCompleteNet:
+    """A freshly initialised net with the JAX ``init_params``'s layout and
+    per-tensor scale (not its draws): linear weights U(+-1/sqrt(fan_in)),
+    the LSTM's weights U(+-0.1), every bias 0, layer norms 1 and 0."""
+    net = MotionCompleteNet()
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf.startswith("weight_"):  # the LSTM's
+                p.uniform_(-0.1, 0.1, generator=generator)
+            elif leaf == "weight" and p.dim() == 2:
+                s = 1.0 / math.sqrt(p.shape[1])
+                p.uniform_(-s, s, generator=generator)
+            elif leaf == "weight":  # layer norm
+                p.fill_(1.0)
+            else:
+                p.zero_()
+    return net.to(device)

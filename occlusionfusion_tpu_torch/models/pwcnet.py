@@ -184,10 +184,15 @@ class PWCNet(nn.Module):
             feats[lvl] = x
         return feats
 
-    def forward(self, im1, im2):
+    def forward_multiscale(self, im1, im2):
+        """({level: flow [B, 2, H/2^l, W/2^l]} for levels 2..6, in each
+        level's pixels x 1/20, level 2 with the context refiner's
+        residual; the last decoder features): the training forward
+        (per-level supervision)."""
         f1 = self.pyramid(im1)
         f2 = self.pyramid(im2)
         flow = feat = None
+        flows = {}
         for lvl in (6, 5, 4, 3, 2):
             dec = self.decoders[str(lvl)]
             a, b = f1[lvl], f2[lvl]
@@ -205,10 +210,16 @@ class PWCNet(nn.Module):
                 x = torch.cat([_lrelu(conv(x)), x], dim=1)
             flow = dec.flow(x)
             feat = x
+            flows[lvl] = flow
         r = feat
         for conv in self.refiner[:-1]:
             r = _lrelu(conv(r))
-        return flow + self.refiner[-1](r), feat
+        flows[2] = flow + self.refiner[-1](r)
+        return flows, feat
+
+    def forward(self, im1, im2):
+        flows, feat = self.forward_multiscale(im1, im2)
+        return flows[2], feat
 
 
 class MaskNet(nn.Module):
@@ -246,3 +257,30 @@ def bf16_copy(net: nn.Module) -> nn.Module:
         twin = copy.deepcopy(net).to(torch.bfloat16)
         _BF16[net] = twin
     return twin
+
+
+def _init_convs(net: nn.Module, generator: torch.Generator | None):
+    """He-normal weights (std sqrt(2 / (k * k * C_in))) and zero biases,
+    the JAX ``_conv_params`` scale."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, (Conv, Deconv)):
+                cin = m.weight.shape[1 if isinstance(m, Conv) else 0]
+                k = m.weight.shape[-1]
+                m.weight.normal_(generator=generator).mul_(
+                    (2.0 / (k * k * cin)) ** 0.5)
+                m.bias.zero_()
+    return net
+
+
+def init_pwcnet(generator: torch.Generator | None = None,
+                device=None) -> PWCNet:
+    """A freshly initialised PWC-Net (the JAX ``init_pwcnet_params``'s
+    layout and scale, not its draws)."""
+    return _init_convs(PWCNet(), generator).to(device)
+
+
+def init_masknet(generator: torch.Generator | None = None,
+                 device=None) -> MaskNet:
+    """A freshly initialised MaskNet (``init_masknet_params``)."""
+    return _init_convs(MaskNet(), generator).to(device)

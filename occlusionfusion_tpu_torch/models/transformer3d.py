@@ -224,3 +224,22 @@ def reposition_transformer(net: RepositionTransformer, src_feats, tgt_feats,
             R, t = soft_procrustes(conf, src_points, tgt_points)
             cur_src_pos = src_points @ R.T + t
     return src_feats, tgt_feats, R, t
+
+
+def init_reposition_(net: RepositionTransformer,
+                     generator: torch.Generator | None = None):
+    """Initialise the transformer in place with the JAX
+    ``init_attention_params``'s scale (not its draws): linear weights
+    N(0, 1 / C_in), zero biases, layer norms 1 and 0."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, Linear):
+                m.w.normal_(generator=generator).mul_(
+                    (1.0 / m.w.shape[0]) ** 0.5)
+                m.b.zero_()
+            elif isinstance(m, AttentionLayer):
+                m.norm1_scale.fill_(1.0)
+                m.norm2_scale.fill_(1.0)
+                m.norm1_bias.zero_()
+                m.norm2_bias.zero_()
+    return net

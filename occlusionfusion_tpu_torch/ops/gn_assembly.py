@@ -29,6 +29,12 @@ into M the same way, plus the motion prior) on CPU tensors.
 M's layout is the JAX package's: the 6x6 block of node pair (a, c)
 starts at row 6a, column 6c. Both kernels add with atomics, so their sum
 order varies from run to run on the card.
+
+``PointTermAssembly`` and ``ArapTermAssembly`` make the two terms
+differentiable (the through-solver tracking trainer backpropagates
+through the Gauss-Newton solve): their forward is the dispatching
+accumulate into fresh zero tensors, K3'/K4' on CUDA tensors, and their
+backward the twin's vector-Jacobian product at the saved inputs.
 """
 
 from __future__ import annotations
@@ -258,3 +264,100 @@ def _check_system(M, b, sq, N: int) -> None:
     D.check_cuda_tensor("sq", sq, f32, ())
     if M.data_ptr() % 8 or b.data_ptr() % 8:
         raise ValueError("M and b must be 8-byte aligned")
+
+
+def _twin_vjp(ctx, twin, n: int, grads, *fixed):
+    """The vector-Jacobian product of ``twin`` (an accumulate into a fresh
+    (M, b, sq) system of ``n`` nodes) at the saved inputs, for the inputs
+    in ``ctx.needs_input_grad``; None for the others."""
+    saved = ctx.saved_tensors
+    need = ctx.needs_input_grad[: len(saved)]
+    with torch.enable_grad():
+        inputs = [x.detach().requires_grad_(bool(g) and x.is_floating_point())
+                  for x, g in zip(saved, need)]
+        dev = inputs[0].device
+        M = torch.zeros((6 * n, 6 * n), dtype=torch.float32, device=dev)
+        b = torch.zeros((6 * n,), dtype=torch.float32, device=dev)
+        sq = torch.zeros((), dtype=torch.float32, device=dev)
+        twin(*inputs, *fixed, M, b, sq)
+        wrt = [x for x in inputs if x.requires_grad]
+        # an output that none of them reaches (the ARAP M without R) has
+        # a zero product and no graph
+        outs = [(o, g) for o, g in zip((M, b, sq), grads) if o.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in outs],
+                                       wrt, [g for _, g in outs],
+                                       allow_unused=True)
+                   if wrt and outs else [None] * len(wrt))
+    return [next(got) if x.requires_grad else None for x in inputs]
+
+
+class PointTermAssembly(torch.autograd.Function):
+    """The point term as a differentiable function of its inputs:
+    ``apply(points, targets, point_valid, anchors, weights, nodes, R, t,
+    sw, proj)`` -> (M [6N, 6N], b [6N], sq []).
+
+    Forward: ``point_term_accumulate`` into fresh zero tensors, so kernel
+    K3' on CUDA tensors and its twin on CPU tensors. Backward: the
+    vector-Jacobian product of the twin ``point_term_accumulate_torch``,
+    recomputed under autograd at the saved inputs for the inputs that
+    need a gradient (targets, point_valid, R and t on the training path).
+    This is the kernel's backward, not a fallback: the forward stays the
+    kernel, the twin computes the same function (the JAX
+    ``_assemble_blocks(assembly="blocks")`` system, F1), and nothing
+    switches on a failure. No backward kernel is written: the JAX
+    package has none either (it differentiates its XLA "blocks"
+    assembly)."""
+
+    @staticmethod
+    def forward(ctx, points, targets, point_valid, anchors, weights, nodes,
+                R, t, sw, proj):
+        n = nodes.shape[0]
+        dev = nodes.device
+        M = torch.zeros((6 * n, 6 * n), dtype=torch.float32, device=dev)
+        b = torch.zeros((6 * n,), dtype=torch.float32, device=dev)
+        sq = torch.zeros((), dtype=torch.float32, device=dev)
+        point_term_accumulate(points, targets, point_valid, anchors, weights,
+                              nodes, R, t, sw, M, b, sq, proj)
+        ctx.save_for_backward(points, targets, point_valid, anchors, weights,
+                              nodes, R, t)
+        ctx.sw, ctx.proj = sw, proj
+        return M, b, sq
+
+    @staticmethod
+    def backward(ctx, gM, gb, gsq):
+        n = ctx.saved_tensors[5].shape[0]
+
+        def twin(*args):
+            *inputs, sw, M, b, sq = args
+            point_term_accumulate_torch(*inputs, sw, M, b, sq,
+                                        proj=ctx.proj)
+
+        grads = _twin_vjp(ctx, twin, n, (gM, gb, gsq), ctx.sw)
+        return (*grads, None, None)
+
+
+class ArapTermAssembly(torch.autograd.Function):
+    """The ARAP term with the motion prior as a differentiable function:
+    ``apply(nodes, R, t, edges, wa, wm, motion_targets)`` -> (M, b, sq).
+    Forward: ``arap_term_accumulate`` into fresh zeros (kernel K4' on CUDA
+    tensors, the twin on CPU tensors); backward: the twin's
+    vector-Jacobian product at the saved inputs, as
+    ``PointTermAssembly``."""
+
+    @staticmethod
+    def forward(ctx, nodes, R, t, edges, wa, wm, motion_targets):
+        n = nodes.shape[0]
+        dev = nodes.device
+        M = torch.zeros((6 * n, 6 * n), dtype=torch.float32, device=dev)
+        b = torch.zeros((6 * n,), dtype=torch.float32, device=dev)
+        sq = torch.zeros((), dtype=torch.float32, device=dev)
+        arap_term_accumulate(nodes, R, t, edges, wa, wm, motion_targets, M, b,
+                             sq)
+        ctx.save_for_backward(nodes, R, t, edges, wa, wm, motion_targets)
+        return M, b, sq
+
+    @staticmethod
+    def backward(ctx, gM, gb, gsq):
+        n = ctx.saved_tensors[0].shape[0]
+        return tuple(_twin_vjp(ctx, arap_term_accumulate_torch, n,
+                               (gM, gb, gsq)))

@@ -36,6 +36,8 @@ from occlusionfusion_tpu_torch.ops.blocksolve import (
     spd_schur_solve,
 )
 from occlusionfusion_tpu_torch.ops.gn_assembly import (
+    ArapTermAssembly,
+    PointTermAssembly,
     arap_term_accumulate,
     point_term_accumulate,
 )
@@ -84,6 +86,31 @@ def _accumulate(problem: GNProblem, terms: _FixedTerms, R, t, M, b, sq):
     )
     arap_term_accumulate(problem.nodes, R, t, terms.edges, terms.wa,
                          terms.wm, problem.motion_targets, M, b, sq)
+
+
+def _assemble_differentiable(problem: GNProblem, terms: _FixedTerms, R, t):
+    """(M, b, sq) at (R, t) as fresh tensors through the autograd
+    Functions of ``ops/gn_assembly.py``: K3' and K4' forward on CUDA
+    tensors, gradients by the twins' vector-Jacobian products."""
+    Mp, bp, sqp = PointTermAssembly.apply(
+        problem.source_points, problem.target_points, problem.point_valid,
+        problem.point_anchors, problem.point_weights, problem.nodes, R, t,
+        terms.sw, terms.proj,
+    )
+    Ma, ba, sqa = ArapTermAssembly.apply(
+        problem.nodes, R, t, terms.edges, terms.wa, terms.wm,
+        problem.motion_targets,
+    )
+    return Mp + Ma, bp + ba, sqp + sqa
+
+
+def _needs_grad(problem: GNProblem, *tensors) -> bool:
+    """Whether autograd records the solve: gradients are on and some input
+    of the problem or the initial transforms requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    return any(isinstance(x, torch.Tensor) and x.requires_grad
+               for x in (*problem, *tensors))
 
 
 def _assemble_blocks(problem: GNProblem, config: GNConfig, R, t):
@@ -195,15 +222,26 @@ def solve_dense(problem: GNProblem, config: GNConfig, init_rotations,
     active = 6 * n
     if dev.type != "cuda" and bool(problem.node_valid.any()):
         active = 6 * (int(torch.nonzero(problem.node_valid)[-1, 0]) + 1)
-    # M and b share one buffer, zeroed by one fill per iteration; each
-    # iteration adds its sq into its own slot of the history
-    Mb = torch.empty((36 * n * n + 6 * n,), dtype=torch.float32, device=dev)
-    M, b = Mb[: 36 * n * n].view(6 * n, 6 * n), Mb[36 * n * n:]
-    hist = torch.zeros((config.iters,), dtype=torch.float32, device=dev)
+    # without gradients M and b share one buffer, zeroed by one fill per
+    # iteration, and each iteration adds its sq into its own slot of the
+    # history; with them (the through-solver trainer) each iteration's
+    # system comes fresh from the autograd Functions and nothing that
+    # autograd saved is written in place
+    differentiable = _needs_grad(problem, init_rotations, init_translations)
+    if not differentiable:
+        Mb = torch.empty((36 * n * n + 6 * n,), dtype=torch.float32,
+                         device=dev)
+        M, b = Mb[: 36 * n * n].view(6 * n, 6 * n), Mb[36 * n * n:]
+        hist = torch.zeros((config.iters,), dtype=torch.float32, device=dev)
+    sqs = []
     ok = torch.ones((), dtype=torch.bool, device=dev)
     for it in range(config.iters):
-        Mb.zero_()
-        _accumulate(problem, terms, R, t, M, b, hist[it])
+        if differentiable:
+            M, b, sq = _assemble_differentiable(problem, terms, R, t)
+            sqs.append(sq)
+        else:
+            Mb.zero_()
+            _accumulate(problem, terms, R, t, M, b, hist[it])
         A = torch.addcmul(damp, M, free66)
         rhs = -b * free6
         finite = torch.ones((), dtype=torch.bool, device=dev)
@@ -211,8 +249,12 @@ def solve_dense(problem: GNProblem, config: GNConfig, init_rotations,
             # rows from 6 * active on are padded nodes' identity rows with
             # a zero right-hand side: their solution is 0
             L, info = torch.linalg.cholesky_ex(A[:active, :active])
-            x = torch.zeros_like(rhs)
-            x[:active] = torch.cholesky_solve(rhs[:active, None], L)[:, 0]
+            sol = torch.cholesky_solve(rhs[:active, None], L)[:, 0]
+            if differentiable:
+                x = torch.nn.functional.pad(sol, (0, 6 * n - active))
+            else:
+                x = torch.zeros_like(rhs)
+                x[:active] = sol
             finite = info == 0
         elif config.linear_solver == "cg":
             x = _pcg(A, rhs, free6, config.dense_cg_iters)
@@ -231,6 +273,9 @@ def solve_dense(problem: GNProblem, config: GNConfig, init_rotations,
         problem.source_points, problem.nodes, R, t, problem.point_anchors,
         problem.point_weights,
     )
+    if differentiable:
+        hist = torch.stack(sqs) if sqs else torch.zeros(
+            (0,), dtype=torch.float32, device=dev)
     nv = problem.node_valid
     R = torch.where(nv[:, None, None], R,
                     torch.eye(3, dtype=torch.float32, device=dev))
