@@ -191,6 +191,33 @@ Phases, each printing one JSON line with its wall seconds:
      and K3'/K4' rows at the trainer's size; a trained flow checkpoint
      reloaded through load_flow_nets bit for bit; each trainer's CLI 2
      steps on the card.
+ 24. distributed (between training and the solver phases): parallel/ on
+     torch.distributed. NCCL at world size 1 on the main path's frame-8
+     GN input: solve_dense_distributed against solve_dense (5e-5 m, K3'
+     and K4' launches equal); then gloo with CUDA tensors at 2 and 4
+     ranks on the one card (launch: spawned ranks, the kernel library
+     built before), on __graft_entry__.py's phase-5 problem (8192
+     points, 512 nodes): every rank against the single-rank card solve
+     (5e-5) and JAX's solve_dense (1e-4, CLI_NPZ), 4 K3' and 4 K4'
+     launches a rank, each rank's K3'/K4' held to their twins on its
+     shard (the ranks in turn), each GN iteration's all_reduce of
+     [M | b | sq] (37.8 MB) timed (gloo over the host: nothing of NCCL
+     across cards); at 4 ranks the matrix-free GN-CG against the
+     single-rank one (1e-4), the node-sharded and time-ring LSTM of the
+     motion GNN's seq_encoder on a [16, 512, 4] history against one
+     nn.LSTM call (1e-5), the x-slab integrate of the main path's 128^3
+     volume equal to the whole volume's;
+ 25. cli (last): the inference CLIs in-process with --device cuda on a
+     marching-cubes sphere clip (cli_clip, 17 frames): convert_dt4d at
+     448x640, run_fusion at its defaults (N-ICP) and with --solver
+     gn_dense, each within 1 mm (median deformed-node z) and 0.5% (each
+     frame's correspondences) of JAX's (CLI_REFERENCE,
+     scripts/torch_cli_reference.py), register_pair with both solvers
+     (frame 0 -> 8) held to JAX's final loss and warped points
+     (CLI_PAIR_TOLS), run_demo on 16 frames at the demo caps within the
+     GNN's cross-backend drift; K1 on run_fusion's initialize and
+     register_pair's skinning, K3'/K4' on register_pair's first GN
+     iteration, each against its twin.
 Each phase prints its wall seconds. Then one JSON line with the kernel
 table: every kernel on the main path's own inputs (K1 on each of its two
 calls), with its launches in the main path's run, on the headline's,
@@ -201,7 +228,10 @@ launches (K3' on advect's fractional weights), and K1 and K2 on the
 N-ICP path's, with its launches, and K1 on each refresh's and growth's
 inputs of the keyframe path and K2 on its grown table, with that run's
 launches, and K3' and K4' on the tracking trainer's GN input with the
-tracking recipe's launches; then the
+tracking recipe's launches, K3' and K4' on each of the 4 ranks' shards
+with the rank's launches, and the CLI rows (K1 on run_fusion's
+initialize and register_pair's skinning, K3'/K4' on register_pair
+gn_dense) with each CLI run's launches; then the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises and exits
 nonzero. Without a CUDA device, or without the port's package beside
@@ -869,6 +899,65 @@ PERCEPTION_F32_REFERENCE = dict(
     ],
 )
 # each kernel's __global__ function, as the profiler names it
+# phases `distributed` and `cli`: parallel/ on torch.distributed
+# and the inference CLIs. The JAX results come from
+# scripts/torch_cli_reference.py (JAX on the CPU): CLI_REFERENCE below,
+# and CLI_NPZ (the phase-5 solve's translations, register_pair's warped
+# points, run_demo's outputs).
+CLI_NPZ = os.path.join(HERE, "reference", "cli_parallel.npz")
+# __graft_entry__.py:222-270's phase-5 problem: 8192 points on a 0.5 m
+# sphere from RandomState(2), 512 nodes, coverage 0.15, k = 4 skinning,
+# 8 graph neighbours, w_arap 2, 4 GN iterations
+DIST_POINTS, DIST_NODES, DIST_COVERAGE = 8192, 512, 0.15
+DIST_SHIFT = (0.01, -0.005, 0.02)
+DIST_GN = dict(iters=4, w_arap=2.0)
+DIST_WORLDS = (2, 4)
+DIST_TOL = 5e-5  # tests/test_distributed_gn.py test_realistic_caps
+DIST_JAX_TOL = 1e-4  # __graft_entry__.py's dry run
+# the matrix-free GN-CG on the same problem (JAX's solve has no fixed
+# CG tolerance: tests/test_distributed_gn.py holds it at 1e-4)
+DIST_CG = dict(iters=3, cg_iters=16)
+DIST_CG_TOL = 1e-4
+DIST_LSTM_SHAPE = (16, 512, 4)
+DIST_LSTM_TOL = 1e-5
+# the cli phase's clip: a marching-cubes sphere (r 0.14 m) receding 4 mm
+# a frame, converted at 448x640 with f = 1000 px, 17 frames
+CLI_FRAMES = 17
+CLI_RADIUS = 0.14
+CLI_FX = 1000.0
+CLI_PAIR_FRAME = 8  # register_pair: frame 0 -> this frame's mesh
+CLI_Z_TOL = 1e-3  # the headline's limits
+CLI_CORRESPONDENCE_TOL = 0.005
+DEMO_CAPS = (512, 128, 32, 32)
+DEMO_FRAMES = 16
+# the motion GNN's documented cross-backend drift
+DEMO_MOTION_TOL, DEMO_CONF_TOL = 3.5e-4, 0.015
+# register_pair against JAX: set from the CPU gaps (see PERF.md)
+CLI_PAIR_TOLS = {"nicp": dict(loss_rel=1e-3, warp_m=1e-4),
+                 "gn_dense": dict(loss_rel=1e-3, warp_m=1e-4)}
+CLI_REFERENCE = {
+    'run_fusion_nicp': {
+        'median_z': 1.4792816638946533,
+        'n_correspondences': [
+            8171, 8171, 8155, 8127, 8078, 8089, 8125, 8103, 8095, 8046,
+            8022, 7990, 7969, 7967, 7949, 7911
+        ],
+    },
+    'run_fusion_gn_dense': {
+        'median_z': 1.4834630489349365,
+        'n_correspondences': [
+            8171, 8142, 8042, 7977, 7948, 7952, 7964, 8010, 8080, 8117,
+            8145, 8137, 8132, 8125, 8131, 8172
+        ],
+    },
+    'register_pair_nicp': {
+        'final_loss': 0.14324,
+    },
+    'register_pair_gn_dense': {
+        'final_loss': 0.14324,
+    },
+}
+
 KERNEL_SYMBOLS = {"knn": "knn_kernel", "lbs_warp": "lbs_kernel",
                   "point_term_blocks": "point_term_accumulate_kernel",
                   "arap_term_blocks": "arap_term_accumulate_kernel"}
@@ -4905,6 +4994,535 @@ def phase_training(dev, main_call):
     return counts, rows
 
 
+# ---------------------------------------------------------------------------
+# phase `distributed`: parallel/ on torch.distributed
+
+
+def distributed_draws():
+    """__graft_entry__.py phase 5's numpy draws: (points [8192, 3] on a
+    0.5 m sphere, nodes [512, 3] among them, targets = points shifted by
+    DIST_SHIFT), float32."""
+    import numpy as np
+
+    r = np.random.RandomState(2)
+    pts = r.randn(DIST_POINTS, 3).astype(np.float32)
+    pts /= np.linalg.norm(pts, axis=1, keepdims=True)
+    pts *= 0.5
+    nodes = pts[r.choice(DIST_POINTS, DIST_NODES, replace=False)]
+    return pts, nodes, pts + np.asarray(DIST_SHIFT, np.float32)
+
+
+def distributed_problem(dev):
+    """The phase-5 GN problem on ``dev``: K1 skins the points (k = 4 at
+    DIST_COVERAGE), ``knn_torch`` (JAX: ``knn_lax``) gives each node its 8
+    neighbours, weighted exp(-d^2 / 2 c^2) and normalised."""
+    import torch
+
+    from occlusionfusion_tpu_torch.geometry.skinning import skinning_weights
+    from occlusionfusion_tpu_torch.ops.knn import knn_torch
+    from occlusionfusion_tpu_torch.solvers.gauss_newton import GNProblem
+
+    pts, nodes, targets = (torch.from_numpy(a).to(dev)
+                           for a in distributed_draws())
+    anchors, weights, valid = skinning_weights(pts, nodes, None,
+                                               DIST_COVERAGE, k=4)
+    d2, idx = knn_torch(nodes, nodes, k=9)
+    ew = torch.exp(-d2[:, 1:] / (2 * DIST_COVERAGE**2))
+    ew = ew / torch.sum(ew, dim=1, keepdim=True)
+    n = DIST_NODES
+    return GNProblem(
+        source_points=pts, point_anchors=anchors, point_weights=weights,
+        target_points=targets, point_valid=valid.to(torch.float32),
+        nodes=nodes, node_valid=torch.ones(n, dtype=torch.bool, device=dev),
+        edges=idx[:, 1:].contiguous(), edge_weights=ew.contiguous(),
+        motion_targets=torch.zeros((n, 3), device=dev),
+        motion_confidence=torch.zeros(n, device=dev),
+        solve_node_mask=torch.ones(n, dtype=torch.bool, device=dev),
+    )
+
+
+def identity_transforms(n, dev):
+    import torch
+
+    return (torch.eye(3, device=dev).expand(n, 3, 3).contiguous(),
+            torch.zeros((n, 3), device=dev))
+
+
+def main_path_volume():
+    """The main path's dense 128^3 volume at its first frame: the depth,
+    the colour, the intrinsics and the volume's origin (numpy)."""
+    import numpy as np
+
+    from occlusionfusion_tpu_torch.fusion import tsdf as T
+
+    seq, _ = sphere_sequence(1, IMG_H, IMG_W, RADIUS, STEP_Z, DISTANCE)
+    frame = seq.load(0)
+    origin = T.volume_bounds_from_frame(frame.depth, seq.intrinsics,
+                                        (VOL,) * 3, VOXEL)
+    return dict(depth=frame.depth, color=frame.color,
+                intrinsics=tuple(float(x) for x in seq.intrinsics),
+                origin=np.asarray(origin, np.float32))
+
+
+def distributed_rank(rank, world, device, arrays, lstm_state, history,
+                     volume, jobs):
+    """One rank of phase `distributed` (gloo on the one card): the phase-5
+    problem through solve_dense_distributed (each all_reduce of
+    [M | b | sq] timed, K3'/K4' counted), K3' and K4' against their twins
+    on this rank's input (the ranks in turn: they share the card); with
+    ``jobs``: the matrix-free GN-CG ("cg"), this rank's blocks of the
+    node-sharded and time-ring LSTM ("lstm"), and its x-slab of the main
+    path's volume against the whole volume's integrate ("slab")."""
+    import math
+
+    import torch
+    import torch.distributed as dist
+
+    from occlusionfusion_tpu_torch import device as D
+    from occlusionfusion_tpu_torch.fusion import tsdf as T
+    from occlusionfusion_tpu_torch.geometry.camera import Intrinsics
+    from occlusionfusion_tpu_torch.parallel import distributed_gn as DG
+    from occlusionfusion_tpu_torch.parallel import sequence as SQ
+    from occlusionfusion_tpu_torch.parallel.mesh import (
+        make_fusion_mesh,
+        shard_rows,
+    )
+    from occlusionfusion_tpu_torch.solvers.gauss_newton import (
+        GNConfig,
+        GNProblem,
+    )
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_fusion_mesh(device=dev)
+    problem = GNProblem(**{k: torch.from_numpy(v).to(dev)
+                           for k, v in arrays.items()})
+    cfg = GNConfig(**DIST_GN)
+    times, orig = [], DG._all_reduce
+
+    def timed(buf, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig(buf, group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+
+    DG._all_reduce = timed
+    try:
+        D.reset_launch_counts()
+        res = DG.solve_dense_distributed(mesh, problem, cfg)
+        torch.cuda.synchronize()
+        counts = dict(D.launch_counts)
+    finally:
+        DG._all_reduce = orig
+    out = dict(rank=rank, translations=res.translations,
+               valid=bool(res.valid), launches=counts, allreduce_ms=times,
+               allreduce_bytes=4 * (36 * DIST_NODES**2 + 6 * DIST_NODES + 1))
+    local = DG.shard_problem(mesh, problem)._replace(
+        edge_weights=problem.edge_weights / world,
+        motion_confidence=problem.motion_confidence / math.sqrt(world))
+    call = (local, cfg, *identity_transforms(DIST_NODES, dev))
+    for r in range(world):
+        if r == rank:
+            rows = gn_kernel_rows(f"distributed_rank_{rank}_of_{world}",
+                                  *gn_path_inputs(call))
+        dist.barrier()
+    for row in rows:
+        row["launches"] = counts[row["name"]]
+    out["rows"] = rows
+    if "cg" in jobs:
+        out["cg"] = DG.solve_distributed(mesh, problem,
+                                         GNConfig(**DIST_CG)).translations
+    if "lstm" in jobs:
+        lstm = torch.nn.LSTM(4, lstm_state["weight_hh_l0"].shape[1],
+                             num_layers=2).to(dev)
+        lstm.load_state_dict({k: torch.from_numpy(v)
+                              for k, v in lstm_state.items()})
+        hist = torch.from_numpy(history).to(dev)
+        out["node"] = SQ.lstm_node_sharded(mesh, lstm, hist)
+        out["ring"] = SQ.lstm_time_ring(mesh, lstm, hist)
+    if "slab" in jobs:
+        cfg_t = T.TSDFConfig((VOL,) * 3, VOXEL, 4.0 * VOXEL)
+        state = T.create_volume(cfg_t, volume["origin"], dev)
+        pts = T.voxel_world_points(cfg_t, state.origin)
+        args = (pts, torch.ones(pts.shape[0], dtype=torch.bool, device=dev),
+                torch.from_numpy(volume["depth"]).to(dev),
+                torch.from_numpy(volume["color"]).to(dev),
+                Intrinsics(*volume["intrinsics"]))
+        slab = SQ.integrate_slab(mesh, cfg_t, state, *args)
+        whole = T.integrate(cfg_t, state, *args)
+        out["slab_equal"] = all(
+            torch.equal(getattr(slab, f), shard_rows(mesh, getattr(whole, f)))
+            for f in ("tsdf", "weight", "color"))
+        out["slab_updated"] = int((slab.weight > 0).sum())
+    return out
+
+
+def phase_distributed(dev, call):
+    """parallel/ on the card: (a) NCCL at world size 1 on the main path's
+    frame-8 GN input, solve_dense_distributed against solve_dense; (b)
+    gloo with CUDA tensors at 2 and 4 ranks on the one card, the phase-5
+    problem against the single-rank card solve and JAX's, each rank's
+    K3'/K4' held to its twins; at 4 ranks (c) the matrix-free GN-CG
+    against the single-rank one, (d) the node-sharded and time-ring LSTM
+    against one nn.LSTM call, (e) the x-slab integrate of the main path's
+    volume against the whole volume's. Returns the 4-rank kernel rows."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from occlusionfusion_tpu_torch import device as D
+    from occlusionfusion_tpu_torch.models.checkpoint import (
+        load_motion_complete_net,
+    )
+    from occlusionfusion_tpu_torch.parallel import distributed_gn as DG
+    from occlusionfusion_tpu_torch.parallel.mesh import (
+        free_port,
+        launch,
+        make_fusion_mesh,
+    )
+    from occlusionfusion_tpu_torch.solvers.gauss_newton import GNConfig
+    from occlusionfusion_tpu_torch.solvers.gauss_newton_dense import (
+        solve_dense,
+    )
+
+    smi = nvidia_smi_line()
+    ref_npz = np.load(CLI_NPZ)
+    jax_t = ref_npz["phase5_translations"]
+    gn_names = ("point_term_blocks", "arap_term_blocks")
+    big = distributed_problem(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_fusion_mesh(device=dev, backend="nccl")
+        problem, config, R, t = call
+        D.reset_launch_counts()
+        single = solve_dense(problem, config, R, t)
+        torch.cuda.synchronize()
+        c_single = {k: D.launch_counts[k] for k in gn_names}
+        D.reset_launch_counts()
+        res = DG.solve_dense_distributed(mesh, problem, config,
+                                         init_rotations=R,
+                                         init_translations=t)
+        torch.cuda.synchronize()
+        c_dist = {k: D.launch_counts[k] for k in gn_names}
+        gap_a = float((res.translations - single.translations).abs().max())
+        emit({"phase": "distributed_nccl_1", "input":
+              f"main_path_frame_{TAP_FRAME}", "max_dt_m": gap_a,
+              "launches_single": c_single, "launches_distributed": c_dist,
+              "valid": bool(res.valid)})
+        assert bool(res.valid) and gap_a <= DIST_TOL, gap_a
+        assert c_single == c_dist and c_dist["point_term_blocks"] > 0, (
+            c_single, c_dist)
+        ref = solve_dense(big, GNConfig(**DIST_GN),
+                          *identity_transforms(DIST_NODES, dev))
+        ref_cg = DG.solve_distributed(mesh, big, GNConfig(**DIST_CG))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    ref_t = ref.translations.cpu().numpy()
+    gap_jax = float(np.abs(ref_t - jax_t).max())
+    emit({"phase": "distributed_single_rank", "max_dt_vs_jax_m": gap_jax,
+          "residual_history": ref.residual_history.tolist()})
+    assert bool(ref.valid) and gap_jax <= DIST_JAX_TOL, gap_jax
+
+    arrays = {k: v.cpu().numpy() for k, v in big._asdict().items()
+              if v is not None}
+    lstm = load_motion_complete_net(device=dev).seq_encoder
+    lstm_state = {k: v.cpu().numpy() for k, v in lstm.state_dict().items()}
+    history = np.random.RandomState(3).randn(*DIST_LSTM_SHAPE).astype(
+        np.float32)
+    with torch.no_grad():
+        lstm_ref = lstm(torch.from_numpy(history).to(dev))[0].cpu().numpy()
+    volume = main_path_volume()
+    D.kernel_lib()  # built here: the ranks only load it
+    rows = []
+    for world in DIST_WORLDS:
+        jobs = ("cg", "lstm", "slab") if world == 4 else ()
+        t0 = time.perf_counter()
+        outs = launch(distributed_rank, world, dev, arrays, lstm_state,
+                      history, volume, jobs, device=dev, backend="gloo",
+                      timeout=600)
+        wall = time.perf_counter() - t0
+        for o in outs:
+            got = o["translations"].numpy()
+            gap, gap_j = (float(np.abs(got - ref_t).max()),
+                          float(np.abs(got - jax_t).max()))
+            emit({"phase": f"distributed_gloo_{world}", "rank": o["rank"],
+                  "max_dt_vs_single_rank_m": gap, "max_dt_vs_jax_m": gap_j,
+                  "launches": {k: o["launches"][k] for k in gn_names},
+                  "allreduce_ms": o["allreduce_ms"],
+                  "allreduce_bytes": o["allreduce_bytes"],
+                  "note": "gloo over the host, all ranks on one card: says "
+                          "nothing of NCCL across cards",
+                  "nvidia_smi": smi, "launch_wall_s": wall})
+            assert o["valid"] and gap <= DIST_TOL and gap_j <= DIST_JAX_TOL, (
+                world, o["rank"], gap, gap_j)
+            assert all(o["launches"][k] == DIST_GN["iters"]
+                       for k in gn_names), o["launches"]
+            for row in o["rows"]:
+                emit({"phase": "kernel", **row})
+            if world == 4:
+                rows += o["rows"]
+        if world == 4:
+            cg_gap = max(float((o["cg"] - ref_cg.translations.cpu()).abs()
+                               .max()) for o in outs)
+            node = np.concatenate([o["node"].numpy() for o in outs], axis=1)
+            ring = np.concatenate([o["ring"].numpy() for o in outs], axis=0)
+            lstm_gaps = (float(np.abs(node - lstm_ref).max()),
+                         float(np.abs(ring - lstm_ref).max()))
+            emit({"phase": "distributed_gloo_4_rest", "cg_max_dt_m": cg_gap,
+                  "lstm_node_max_err": lstm_gaps[0],
+                  "lstm_ring_max_err": lstm_gaps[1],
+                  "slab_equal": [o["slab_equal"] for o in outs],
+                  "slab_updated_voxels": [o["slab_updated"] for o in outs]})
+            assert cg_gap <= DIST_CG_TOL, cg_gap
+            assert max(lstm_gaps) <= DIST_LSTM_TOL, lstm_gaps
+            assert all(o["slab_equal"] for o in outs)
+            assert sum(o["slab_updated"] for o in outs) > 0
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase `cli`: the inference CLIs at full width
+
+
+def cli_clip(path):
+    """A DT4D-layout .anime clip: a marching-cubes sphere of radius
+    CLI_RADIUS (5 mm grid) receding STEP_Z a frame along the ray,
+    CLI_FRAMES frames. Returns (verts, faces, offsets)."""
+    import numpy as np
+
+    from occlusionfusion_tpu_torch.data.deformingthings4d import save_anime
+    from occlusionfusion_tpu_torch.graph import native
+
+    n = int(2 * CLI_RADIUS / VOXEL) + 8
+    g = np.mgrid[0:n, 0:n, 0:n].astype(np.float32)
+    sdf = np.linalg.norm(g - (n - 1) / 2.0, axis=0) - CLI_RADIUS / VOXEL
+    verts, faces = native.marching_cubes(sdf)
+    verts = (verts * VOXEL).astype(np.float32)
+    offs = np.zeros((CLI_FRAMES - 1, len(verts), 3), np.float32)
+    offs[..., 2] = (STEP_Z * np.arange(1, CLI_FRAMES, dtype=np.float32))[
+        :, None]
+    save_anime(path, verts, faces, offs)
+    return verts, faces, offs
+
+
+def cli_pair(root, verts, faces, offs):
+    """register_pair's input: the clip's frame-0 and frame-CLI_PAIR_FRAME
+    meshes as PLY. Returns (source path, target path)."""
+    from occlusionfusion_tpu_torch.utils.viz import save_ply
+
+    src, tgt = (os.path.join(root, f"pair_{k}.ply") for k in ("s", "t"))
+    save_ply(src, verts, faces)
+    save_ply(tgt, verts + offs[CLI_PAIR_FRAME - 1], faces)
+    return src, tgt
+
+
+def cli_demo_dir(root):
+    """DEMO_FRAMES frames of node/graph files at the demo caps DEMO_CAPS:
+    the pyramid drawn as __graft_entry__._demo_scale_inputs draws it (one
+    graph for every frame), the nodes moving 4 mm a frame in z with
+    noise, 70% of them visible."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    sizes, ks = [227, 55, 17, 6], (8, 6, 4, 3)
+    nn = [rng.randint(0, sizes[l], size=(sizes[l], ks[l])).astype(np.int16)
+          for l in range(4)]
+    down = [np.sort(rng.choice(sizes[l], size=sizes[l + 1], replace=False))
+            .astype(np.int16) for l in range(3)]
+    up = [rng.randint(0, sizes[l + 1], size=sizes[l]).astype(np.int16)
+          for l in range(3)]
+    pos = rng.randn(sizes[0], 3).astype(np.float32) * 0.2
+    for sub in ("node", "graph"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for f in range(1, DEMO_FRAMES + 1):
+        np.savez(os.path.join(root, "graph", f"{f:04d}.npz"),
+                 **{f"nn_index_l{l}": nn[l] for l in range(4)},
+                 **{f"down_sample_idx{i + 1}": down[i] for i in range(3)},
+                 **{f"up_sample_idx{i + 1}": up[i] for i in range(3)})
+        motion = (np.asarray([0, 0, STEP_Z], np.float32)
+                  + rng.randn(sizes[0], 3).astype(np.float32) * 1e-3)
+        visible = (rng.rand(sizes[0], 1) > 0.3).astype(np.float32)
+        np.save(os.path.join(root, "node", f"{f:04d}.npy"),
+                np.hstack([pos + STEP_Z * f * np.asarray([0, 0, 1],
+                                                          np.float32),
+                           motion, visible]).astype(np.float32))
+    return root
+
+
+def cli_argv(name, root):
+    """Each CLI's arguments on the phase's files (the JAX reference script
+    gives the same to the JAX scripts)."""
+    seq = os.path.join(root, "seq")
+    if name == "convert_dt4d":
+        return ["--anime", os.path.join(root, "clip.anime"), "--out", seq,
+                "--height", str(IMG_H), "--width", str(IMG_W), "--fx",
+                str(CLI_FX)]
+    if name.startswith("run_fusion"):
+        solver = name.split("_", 2)[2]
+        return ["--datadir", seq, "--results", os.path.join(root, name),
+                "--solver", solver]
+    if name.startswith("register_pair"):
+        solver = name.split("_", 2)[2]
+        src, tgt = (os.path.join(root, f"pair_{k}.ply") for k in ("s", "t"))
+        return ["--source", src, "--target", tgt, "--solver", solver,
+                "--out", os.path.join(root, f"{name}.ply")]
+    return ["--input", os.path.join(root, "demo_in"), "--output",
+            os.path.join(root, "demo_out")]
+
+
+def final_loss(stdout: str) -> float:
+    """The ``final loss X`` line register_pair prints."""
+    (line,) = [l for l in stdout.splitlines() if l.startswith("final loss")]
+    return float(line.split()[-1])
+
+
+def run_fusion_outcome(results):
+    """(median deformed-node z, per-frame correspondences) of a run_fusion
+    results directory."""
+    import numpy as np
+
+    nodes = np.load(os.path.join(results, "deformed_nodes_final.npy"))
+    with open(os.path.join(results, "convergence.json")) as fh:
+        infos = json.load(fh)
+    return (float(np.median(nodes[:, 2])),
+            [i["n_correspondences"] for i in infos])
+
+
+def phase_cli(dev):
+    """The inference CLIs at full width, in-process (``main(argv)``) with
+    ``--device cuda``: convert_dt4d (448x640) on cli_clip; run_fusion at
+    its defaults (128^3 at 5 mm, bricked, 512 nodes, 8192 points, N-ICP
+    100, the motion GNN, chunk 16) and with --solver gn_dense, each held
+    to JAX's median deformed-node z (1 mm) and per-frame correspondences
+    (0.5%), final_mesh.ply read back; register_pair with both solvers
+    from frame 0's mesh to frame CLI_PAIR_FRAME's, held to JAX's final
+    loss and warped points; run_demo on cli_demo_dir held to JAX's
+    outputs within the GNN's cross-backend drift. K1 (run_fusion's
+    initialize, register_pair's skinning) and K3'/K4' (register_pair
+    gn_dense) against their twins on the CLIs' own inputs; returns those
+    kernel rows."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from occlusionfusion_tpu_torch import device as D
+    from occlusionfusion_tpu_torch.scripts import (
+        convert_dt4d,
+        register_pair,
+        run_demo,
+        run_fusion,
+    )
+    from occlusionfusion_tpu_torch.solvers import gauss_newton_dense as GND
+    from occlusionfusion_tpu_torch.utils.viz import load_ply
+
+    ref_npz = np.load(CLI_NPZ)
+    rows, out = [], {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+        verts, faces, offs = cli_clip(os.path.join(root, "clip.anime"))
+        cli_pair(root, verts, faces, offs)
+        cli_demo_dir(os.path.join(root, "demo_in"))
+        dv = ["--device", dev]
+
+        t0 = time.perf_counter()
+        convert_dt4d.main(cli_argv("convert_dt4d", root) + dv)
+        out["convert_dt4d_s"] = time.perf_counter() - t0
+
+        for solver in ("nicp", "gn_dense"):
+            name = f"run_fusion_{solver}"
+            t0 = time.perf_counter()
+            D.reset_launch_counts()
+            with KernelInputTap(None, keep_all=True) as tap:
+                run_fusion.main(cli_argv(name, root) + dv)
+            torch.cuda.synchronize()
+            counts = dict(D.launch_counts)
+            med_z, corr = run_fusion_outcome(os.path.join(root, name))
+            ref = CLI_REFERENCE[name]
+            verts_out, faces_out = load_ply(
+                os.path.join(root, name, "final_mesh.ply"))
+            rel = max(abs(a - b) / max(b, 1) for a, b in
+                      zip(corr, ref["n_correspondences"]))
+            out[name] = dict(s=time.perf_counter() - t0, median_z=med_z,
+                             median_z_gap_m=med_z - ref["median_z"],
+                             max_correspondence_gap=rel, launches=counts,
+                             mesh_vertices=len(verts_out))
+            emit({"phase": "cli", "cli": name, **out[name]})
+            assert abs(med_z - ref["median_z"]) <= CLI_Z_TOL, out[name]
+            assert len(corr) == len(ref["n_correspondences"]) and (
+                rel <= CLI_CORRESPONDENCE_TOL), (corr, ref)
+            assert len(verts_out) > 0 and len(faces_out) > 0
+            assert counts["knn"] >= 3 and counts["lbs_warp"] > 0, counts
+            if solver == "gn_dense":
+                assert counts["point_term_blocks"] > 0, counts
+            else:
+                # run_fusion's initialize: the voxel slots, the model points
+                init_rows = []
+                for i, (_, P, (q, refs, _, valid)) in enumerate(
+                        tap.calls[:2]):
+                    row = knn_row(f"run_fusion_initialize_P{P}", q, refs,
+                                  valid)[0]
+                    row["launches"] = counts["knn"]
+                    init_rows.append(row)
+                rows += init_rows
+            del tap
+
+        for solver in ("nicp", "gn_dense"):
+            name = f"register_pair_{solver}"
+            t0 = time.perf_counter()
+            stdout = io.StringIO()
+            D.reset_launch_counts()
+            with KernelInputTap(None, keep_all=True) as ktap, SolveTap(
+                    1, module=GND) as stap, contextlib.redirect_stdout(stdout):
+                register_pair.main(cli_argv(name, root) + dv)
+            torch.cuda.synchronize()
+            counts = dict(D.launch_counts)
+            loss = final_loss(stdout.getvalue())
+            warped, _ = load_ply(os.path.join(root, f"{name}.ply"))
+            ref_w = ref_npz[name]
+            gap = float(np.abs(warped - ref_w).max())
+            ref_loss = CLI_REFERENCE[name]["final_loss"]
+            out[name] = dict(s=time.perf_counter() - t0, final_loss=loss,
+                             final_loss_jax=ref_loss, max_warp_gap_m=gap,
+                             launches=counts)
+            emit({"phase": "cli", "cli": name, **out[name]})
+            tol = CLI_PAIR_TOLS[solver]
+            assert abs(loss - ref_loss) <= tol["loss_rel"] * ref_loss, (
+                out[name])
+            assert gap <= tol["warp_m"], out[name]
+            (_, _, (q, refs, _, _)), = ktap.calls
+            valid = torch.ones(refs.shape[0], dtype=torch.bool,
+                               device=refs.device)
+            row = knn_row(f"{name}_skinning", q, refs, valid)[0]
+            new = [row]
+            if solver == "gn_dense":
+                new += gn_kernel_rows(f"{name}_iteration_1",
+                                      *gn_path_inputs(stap.call))
+            for r in new:
+                r["launches"] = counts[r["name"]]
+            assert all(r["launches"] > 0 for r in new), counts
+            rows += new
+
+        t0 = time.perf_counter()
+        run_demo.main(cli_argv("run_demo", root) + dv)
+        demo = np.stack([np.load(os.path.join(root, "demo_out", "node",
+                                              f"{f:04d}.npy"))
+                         for f in range(1, DEMO_FRAMES + 1)])
+        ref_demo = ref_npz["run_demo"]
+        gaps = (float(np.abs(demo[..., :3] - ref_demo[..., :3]).max()),
+                float(np.abs(demo[..., 3] - ref_demo[..., 3]).max()))
+        out["run_demo"] = dict(s=time.perf_counter() - t0,
+                               motion_gap_m=gaps[0], confidence_gap=gaps[1])
+        emit({"phase": "cli", "cli": "run_demo", **out["run_demo"]})
+        assert gaps[0] <= DEMO_MOTION_TOL and gaps[1] <= DEMO_CONF_TOL, gaps
+    return rows
+
+
 def main(argv) -> int:
     t_all = time.perf_counter()
     import torch
@@ -5080,6 +5698,10 @@ def main(argv) -> int:
     emit({"phase": "training_done", "s": time.perf_counter() - t})
 
     t = time.perf_counter()
+    rows += phase_distributed(dev, solver_call)
+    emit({"phase": "distributed_done", "s": time.perf_counter() - t})
+
+    t = time.perf_counter()
     phase_gn_solvers(dev, solver_call)
     del solver_call
     emit({"phase": "gn_solvers_done", "s": time.perf_counter() - t})
@@ -5099,6 +5721,13 @@ def main(argv) -> int:
     t = time.perf_counter()
     phase_parity(dev, ("gn_solvers", "nicp_costs"))
     emit({"phase": "parity_solvers_done", "s": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    cli_rows = phase_cli(dev)
+    for row in cli_rows:
+        emit({"phase": "kernel", **row})
+    rows += cli_rows
+    emit({"phase": "cli_done", "s": time.perf_counter() - t})
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -97,6 +97,16 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(DEFAULT_DEVICE if device is None else device)
 
 
+def require_device(device=None) -> torch.device:
+    """``resolve_device`` for a command line: exits with an error where
+    the card is asked for and there is none (no fallback to the CPU)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {device}: no CUDA device (pass "
+                         "--device cpu)")
+    return dev
+
+
 # the counter of the graph being captured, or None
 _capture_counts = None
 

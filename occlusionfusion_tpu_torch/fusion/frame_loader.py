@@ -7,8 +7,9 @@ PNG in millimetres), an optional ``mask/`` and an ``intrinsics.txt`` 3x3
 (depth cut-off, median depth filter, depth-discontinuity mask). PNGs are
 decoded here with ``zlib`` and numpy (``read_png``: non-interlaced grey,
 grey + alpha, RGB, RGBA and palette images at every bit depth); another
-colour format (JPEG) needs Pillow. ``ArraySequence`` holds frames in
-memory.
+colour format (JPEG) needs Pillow. ``write_png`` writes 8-bit grey or
+RGB and 16-bit grey PNGs the same way (``scripts/convert_dt4d.py``
+writes its frames with it). ``ArraySequence`` holds frames in memory.
 """
 
 from __future__ import annotations
@@ -118,6 +119,36 @@ def read_png(path: str, expand_palette: bool = True) -> np.ndarray:
     if ctype == 3 and expand_palette:
         return palette[img[..., 0]]
     return img[..., 0] if channels == 1 else img
+
+
+def _png_chunk(ctype: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + ctype + body
+            + struct.pack(">I", zlib.crc32(ctype + body) & 0xFFFFFFFF))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write a uint8 [H, W] (grey) or [H, W, 3] (RGB) array, or a uint16
+    [H, W] (16-bit grey) one, as a non-interlaced PNG (filter type 0 on
+    every row, zlib level 6)."""
+    img = np.asarray(img)
+    if img.dtype == np.uint16 and img.ndim == 2:
+        depth, ctype, rows = 16, 0, img.astype(">u2")
+    elif img.dtype == np.uint8 and img.ndim == 2:
+        depth, ctype, rows = 8, 0, img
+    elif img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3:
+        depth, ctype, rows = 8, 2, img
+    else:
+        raise ValueError(f"write_png takes uint8 [H, W] or [H, W, 3] or "
+                         f"uint16 [H, W], got {img.dtype} {img.shape}")
+    height, width = img.shape[:2]
+    raw = np.ascontiguousarray(rows).reshape(height, -1).view(np.uint8)
+    filtered = np.concatenate(
+        [np.zeros((height, 1), np.uint8), raw], axis=1).tobytes()
+    header = struct.pack(">IIBBBBB", width, height, depth, ctype, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
+                + _png_chunk(b"IDAT", zlib.compress(filtered, 6))
+                + _png_chunk(b"IEND", b""))
 
 
 def _read_image(path: str) -> np.ndarray:

@@ -56,6 +56,21 @@ def load_params(npz_path: str) -> Dict[str, Any]:
     return nest_flat_dict({k: data[k] for k in data.files})
 
 
+def convert_torch_checkpoint(tar_path: str, npz_path: str | None = None):
+    """The reference's torch checkpoint (a tar holding a state dict, or a
+    dict with ``model_state_dict``) -> the nested numpy tree of the JAX
+    layout; written as the flat npz the repo's checkpoints use where
+    ``npz_path`` is given. The tar is a pickle: load only a trusted
+    file."""
+    ck = torch.load(tar_path, map_location="cpu", weights_only=False)
+    sd = ck["model_state_dict"] if "model_state_dict" in ck else ck
+    flat = {k: v.detach().cpu().numpy().astype(np.float32)
+            for k, v in sd.items()}
+    if npz_path:
+        np.savez(npz_path, **flat)
+    return nest_flat_dict(flat)
+
+
 def normalize_indexed(tree):
     """Undo the flat-npz round trip of lists and int-keyed dicts: a dict
     whose keys are all digit strings becomes a list when they run 0..n-1,
@@ -158,7 +173,9 @@ def masknet_params_from_jax(np_tree) -> Dict[str, torch.Tensor]:
 
 def load_flow_nets(path: str | None = None, device=None):
     """(PWCNet, MaskNet) with the repo's weights
-    (``checkpoints/flow.npz`` unless a path is given), in eval mode."""
+    (``checkpoints/flow.npz`` unless a path is given), in eval mode; the
+    MaskNet is None where the checkpoint has none (``train_flow``
+    without ``--with_mask``)."""
     from occlusionfusion_tpu_torch.device import resolve_device
     from occlusionfusion_tpu_torch.models.pwcnet import MaskNet, PWCNet
 
@@ -169,9 +186,11 @@ def load_flow_nets(path: str | None = None, device=None):
     tree = nest_flat_dict({k: data[k] for k in data.files}, sep="/")
     pwc = PWCNet()
     pwc.load_state_dict(pwc_params_from_jax(tree["pwc"]))
+    dev = resolve_device(device)
+    if "mask" not in tree:
+        return pwc.to(dev).eval(), None
     mask = MaskNet()
     mask.load_state_dict(masknet_params_from_jax(tree["mask"]))
-    dev = resolve_device(device)
     return pwc.to(dev).eval(), mask.to(dev).eval()
 
 

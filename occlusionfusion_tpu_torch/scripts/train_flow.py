@@ -295,7 +295,7 @@ def load_flow_tree(path):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    from occlusionfusion_tpu_torch.device import resolve_device
+    from occlusionfusion_tpu_torch.device import require_device
     from occlusionfusion_tpu_torch.models.checkpoint import (
         masknet_params_from_jax,
         pwc_params_from_jax,
@@ -307,9 +307,7 @@ def main(argv=None):
     )
     from occlusionfusion_tpu_torch.utils.snapshot import save_pytree
 
-    dev = resolve_device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device (pass --device cpu)")
+    dev = require_device(args.device)
     rng = np.random.RandomState(args.seed)
     pwc = init_pwcnet(torch.Generator().manual_seed(args.seed), dev)
     mask = None

@@ -433,7 +433,7 @@ def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
     check_flags(ap, args)
-    from occlusionfusion_tpu_torch.device import resolve_device
+    from occlusionfusion_tpu_torch.device import require_device
     from occlusionfusion_tpu_torch.models import kpconv as K
     from occlusionfusion_tpu_torch.models.checkpoint import (
         lepard_params_from_jax,
@@ -450,9 +450,7 @@ def main(argv=None):
         warmup_cosine_decay_schedule,
     )
 
-    dev = resolve_device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device (pass --device cpu)")
+    dev = require_device(args.device)
     levels = tuple(int(x) for x in args.levels.split(","))
     pyramid = K.PyramidConfig(level_sizes=levels, first_voxel=args.first_voxel)
     pair_kw = dict(

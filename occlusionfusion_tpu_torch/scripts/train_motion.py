@@ -176,7 +176,7 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    from occlusionfusion_tpu_torch.device import resolve_device
+    from occlusionfusion_tpu_torch.device import require_device
     from occlusionfusion_tpu_torch.models.checkpoint import (
         load_motion_complete_net,
         params_to_jax,
@@ -191,9 +191,7 @@ def main(argv=None):
     from occlusionfusion_tpu_torch.models.optim import Adam
     from occlusionfusion_tpu_torch.utils.snapshot import save_pytree
 
-    dev = resolve_device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device (pass --device cpu)")
+    dev = require_device(args.device)
     caps = tuple(int(x) for x in args.caps.split(","))
     if args.resume:
         net = load_motion_complete_net(args.resume, device=dev).train()

@@ -195,6 +195,42 @@ def _pcg(A, rhs, free6, iters: int):
     return x
 
 
+def _active_rows(problem: GNProblem) -> int:
+    """The rows the Cholesky factorizes: all on the card (no host read in
+    a captured step); on the CPU, where the factorization of the padded
+    system costs most of a test's solve, up to the last valid node's."""
+    n = problem.nodes.shape[0]
+    if problem.nodes.device.type != "cuda" and bool(problem.node_valid.any()):
+        return 6 * (int(torch.nonzero(problem.node_valid)[-1, 0]) + 1)
+    return 6 * n
+
+
+def _cholesky_solve(A, rhs, active: int, differentiable: bool = False):
+    """(x, finite): A x = rhs by Cholesky over the first ``active`` rows;
+    the rows from ``active`` on are padded nodes' identity rows with a
+    zero right-hand side, whose solution is 0. ``finite`` is False where
+    the factorization failed."""
+    L, info = torch.linalg.cholesky_ex(A[:active, :active])
+    sol = torch.cholesky_solve(rhs[:active, None], L)[:, 0]
+    if differentiable:
+        x = torch.nn.functional.pad(sol, (0, rhs.shape[0] - active))
+    else:
+        x = torch.zeros_like(rhs)
+        x[:active] = sol
+    return x, info == 0
+
+
+def _retract(R, t, x, finite, step_length: float):
+    """(R, t, finite) after the step x [6N] times ``step_length``:
+    R <- exp(dw) R, t <- t + dt; a step that is not finite (or whose
+    ``finite`` is already False) is dropped."""
+    x = x.reshape(-1, 6) * step_length
+    finite = finite & torch.isfinite(x).all()
+    x = torch.where(finite, x, torch.zeros_like(x))
+    R = torch.einsum("nij,njk->nik", so3_exp(x[:, :3]), R)
+    return R, t + x[:, 3:], finite
+
+
 def solve_dense(problem: GNProblem, config: GNConfig, init_rotations,
                 init_translations) -> GNResult:
     """``config.iters`` damped GN steps solved by ``config.linear_solver``
@@ -216,12 +252,7 @@ def solve_dense(problem: GNProblem, config: GNConfig, init_rotations,
         torch.ones_like(free6),
     ))
     terms = _fixed_terms(problem, config)
-    # the rows the Cholesky factorizes: all on the card (no host read in a
-    # captured step); on the CPU, where the factorization of the padded
-    # system costs most of a test's solve, up to the last valid node's
-    active = 6 * n
-    if dev.type != "cuda" and bool(problem.node_valid.any()):
-        active = 6 * (int(torch.nonzero(problem.node_valid)[-1, 0]) + 1)
+    active = _active_rows(problem)
     # without gradients M and b share one buffer, zeroed by one fill per
     # iteration, and each iteration adds its sq into its own slot of the
     # history; with them (the through-solver trainer) each iteration's
@@ -246,16 +277,7 @@ def solve_dense(problem: GNProblem, config: GNConfig, init_rotations,
         rhs = -b * free6
         finite = torch.ones((), dtype=torch.bool, device=dev)
         if config.linear_solver == "cholesky":
-            # rows from 6 * active on are padded nodes' identity rows with
-            # a zero right-hand side: their solution is 0
-            L, info = torch.linalg.cholesky_ex(A[:active, :active])
-            sol = torch.cholesky_solve(rhs[:active, None], L)[:, 0]
-            if differentiable:
-                x = torch.nn.functional.pad(sol, (0, 6 * n - active))
-            else:
-                x = torch.zeros_like(rhs)
-                x[:active] = sol
-            finite = info == 0
+            x, finite = _cholesky_solve(A, rhs, active, differentiable)
         elif config.linear_solver == "cg":
             x = _pcg(A, rhs, free6, config.dense_cg_iters)
         elif config.linear_solver == "schur":
@@ -263,11 +285,7 @@ def solve_dense(problem: GNProblem, config: GNConfig, init_rotations,
         else:
             x = newton_schulz_solve(A, rhs, block=config.ns_block,
                                     iters=config.ns_iters)
-        x = x.reshape(n, 6) * config.step_length
-        finite = finite & torch.isfinite(x).all()
-        x = torch.where(finite, x, torch.zeros_like(x))
-        R = torch.einsum("nij,njk->nik", so3_exp(x[:, :3]), R)
-        t = t + x[:, 3:]
+        R, t, finite = _retract(R, t, x, finite, config.step_length)
         ok = ok & finite
     warped = ed_warp(
         problem.source_points, problem.nodes, R, t, problem.point_anchors,
