@@ -207,7 +207,7 @@ Phases, each printing one JSON line with its wall seconds:
      motion GNN's seq_encoder on a [16, 512, 4] history against one
      nn.LSTM call (1e-5), the x-slab integrate of the main path's 128^3
      volume equal to the whole volume's;
- 25. cli (last): the inference CLIs in-process with --device cuda on a
+ 25. cli: the inference CLIs in-process with --device cuda on a
      marching-cubes sphere clip (cli_clip, 17 frames): convert_dt4d at
      448x640, run_fusion at its defaults (N-ICP) and with --solver
      gn_dense, each within 1 mm (median deformed-node z) and 0.5% (each
@@ -218,6 +218,24 @@ Phases, each printing one JSON line with its wall seconds:
      GNN's cross-backend drift; K1 on run_fusion's initialize and
      register_pair's skinning, K3'/K4' on register_pair's first GN
      iteration, each against its twin.
+ 26. evaluate (last): the evaluation and export tools in-process with
+     --device cuda at their defaults, held to the JAX scripts' results
+     (EVAL_NPZ, scripts/torch_eval_reference.py): export_deepdeform
+     (arms, 8 frames, 160x160) byte for byte the CPU export JAX
+     evaluated, but the pixel-anchor weights (1e-6 of the twin's), and
+     pixel_anchors_euclidean on frame 0 equal to the twin's and JAX's;
+     evaluate_deepdeform on that tree with the ground-truth flow and
+     with checkpoints/flow.npz, each sample within 0.05 mm (graph_mm,
+     epe3d_mm) and 0.01 px (epe2d_px) of JAX's with the same valid
+     solves; evaluate_dt4d on the limbs clip turning 3 degrees a frame
+     at its defaults and with flow + Lepard (then on depths scaled by
+     1 +- 1e-6 and 1 +- 2e-6), per-frame EPE, ate_m and correspondences
+     held by eval_check_dt4d (1 mm and 0.5% where both ensembles agree,
+     F17); --trajectory on JAX's estimated poses within 1e-5 m;
+     visualize_demo on run_demo's output, each PNG read back; K1 on the
+     export's pixel anchors and evaluate_dt4d's initialize, K2 on its
+     warp and K3'/K4' on an evaluate_deepdeform solve, each against its
+     twin.
 Each phase prints its wall seconds. Then one JSON line with the kernel
 table: every kernel on the main path's own inputs (K1 on each of its two
 calls), with its launches in the main path's run, on the headline's,
@@ -231,7 +249,10 @@ launches, and K3' and K4' on the tracking trainer's GN input with the
 tracking recipe's launches, K3' and K4' on each of the 4 ranks' shards
 with the rank's launches, and the CLI rows (K1 on run_fusion's
 initialize and register_pair's skinning, K3'/K4' on register_pair
-gn_dense) with each CLI run's launches; then the
+gn_dense) with each CLI run's launches, and the evaluation tools' rows
+(K1 on the export's pixel anchors and evaluate_dt4d's initialize, K2 on
+its warp, K3'/K4' on evaluate_deepdeform) with each tool run's launches;
+then the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises and exits
 nonzero. Without a CUDA device, or without the port's package beside
@@ -254,6 +275,7 @@ change, parent compares two commits on one card.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -957,6 +979,24 @@ CLI_REFERENCE = {
         'final_loss': 0.14324,
     },
 }
+
+# phase `evaluate`: the evaluation and export tools at their defaults
+EVAL_NPZ = os.path.join(HERE, "reference", "eval_tools.npz")
+EVAL_FLOW = os.path.join(HERE, "checkpoints", "flow.npz")
+EVAL_LEPARD = os.path.join(HERE, "checkpoints", "lepard_trained.npz")
+EVAL_HW = 160  # export_deepdeform's and evaluate_deepdeform's default
+EVAL_COVERAGE = 0.05  # export_deepdeform's --node_coverage default
+EVAL_MM_TOL = 0.05  # graph_mm and epe3d_mm per sample (mm)
+EVAL_PX_TOL = 0.01  # epe2d_px per sample
+EVAL_WEIGHT_TOL = 1e-6  # pixel-anchor weights
+EVAL_DT4D_TOL = 1e-3  # evaluate_dt4d's per-frame EPE and ate_m (m)
+EVAL_CORRESPONDENCE_TOL = 0.005
+EVAL_TRAJECTORY_TOL = 1e-5  # pose_ate_m of a scored trajectory (m)
+EVAL_DEMO_FRAMES = 2
+# depth scales of the evaluate_dt4d ensembles (ROADMAP F9, F17): the
+# default run is held against JAX's at 1 + 2e-6, the perception run's
+# ensembles of both packages at all four
+EVAL_ENSEMBLE = {"gn_dense": (2e-6,), "perception": (1e-6, -1e-6, 2e-6, -2e-6)}
 
 KERNEL_SYMBOLS = {"knn": "knn_kernel", "lbs_warp": "lbs_kernel",
                   "point_term_blocks": "point_term_accumulate_kernel",
@@ -5523,6 +5563,384 @@ def phase_cli(dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase `evaluate`: the evaluation and export tools at their defaults
+
+
+def eval_export_argv(root):
+    """export_deepdeform at its defaults (arms, 8 frames, 160x160)."""
+    return ["--out", root]
+
+
+def eval_dt4d_argv(name):
+    """evaluate_dt4d on the limbs clip turning 3 degrees a frame: at its
+    defaults (``gn_dense``: 12 frames, gn_dense, the fused step) or with
+    the perception settings (``perception``: flow + Lepard, the stepwise
+    loop)."""
+    argv = ["--synthetic", "--shape", "limbs", "--rotate_deg", "3"]
+    if name == "perception":
+        argv += ["--flow_weights", EVAL_FLOW, "--textured",
+                 "--lepard_weights", EVAL_LEPARD]
+    return argv
+
+
+def eval_samples(root):
+    with open(os.path.join(root, "train.json")) as fh:
+        return json.load(fh)
+
+
+@functools.lru_cache(maxsize=1)
+def eval_clip(root):
+    """(intrinsics, frames) export_deepdeform renders for
+    eval_export_argv(root)."""
+    from occlusionfusion_tpu_torch.scripts import export_deepdeform
+
+    return export_deepdeform.clip_frames(
+        export_deepdeform.build_parser().parse_args(eval_export_argv(root)))
+
+
+def eval_source_frame(root, sample):
+    """(source point image [H, W, 3], graph nodes) of an exported sample:
+    the frame as export_deepdeform renders it (not its depth PNG's
+    millimetres) and the nodes it wrote."""
+    from occlusionfusion_tpu_torch.data import formats
+    from occlusionfusion_tpu_torch.data.synthetic_shapes import _backproject
+
+    intr, frames = eval_clip(root)
+    pts = _backproject(frames[sample["source_id"]]["depth"], intr)
+    nodes = formats.load_graph_nodes(os.path.join(root,
+                                                  sample["graph_nodes"]))
+    return pts.astype("float32"), nodes
+
+
+def tree_digests(root):
+    """(relative paths, sha256 hex) of every file under ``root`` but the
+    pixel-anchor weights (held to 1e-6 elsewhere), sorted by path."""
+    import hashlib
+
+    names, digests = [], []
+    for d, _, files in sorted(os.walk(root)):
+        for f in sorted(files):
+            if f.endswith("_anchor_weights.bin"):
+                continue
+            path = os.path.join(d, f)
+            with open(path, "rb") as fh:
+                digests.append(hashlib.sha256(fh.read()).hexdigest())
+            names.append(os.path.relpath(path, root))
+    return names, digests
+
+
+def eval_export(dev, root, ref_npz):
+    """export_deepdeform on the card: every file but the anchor weights
+    byte for byte the CPU export's that JAX evaluated (its anchors equal
+    JAX's), every sample's weights within EVAL_WEIGHT_TOL of the twin's;
+    pixel_anchors_euclidean on frame 0 on the card against the twin and
+    JAX (anchors equal, weights within EVAL_WEIGHT_TOL); K1 against its
+    twin on the export's first skinning input. Returns the K1 row."""
+    import numpy as np
+    import torch
+
+    from occlusionfusion_tpu_torch import device as D
+    from occlusionfusion_tpu_torch.data import formats
+    from occlusionfusion_tpu_torch.graph.pixel_anchors import (
+        pixel_anchors_euclidean,
+    )
+    from occlusionfusion_tpu_torch.scripts import export_deepdeform
+
+    t0 = time.perf_counter()
+    D.reset_launch_counts()
+    with KernelInputTap(None, keep_all=True) as tap:
+        export_deepdeform.main(eval_export_argv(root) + ["--device", dev])
+    torch.cuda.synchronize()
+    counts = dict(D.launch_counts)
+    s = time.perf_counter() - t0
+    names, digests = tree_digests(root)
+    ref = dict(zip(ref_npz["export_files"].tolist(),
+                   ref_npz["export_sha256"].tolist()))
+    differing = sorted(n for n, d in zip(names, digests) if ref.get(n) != d)
+    weight_gap = 0.0
+    for sample in eval_samples(root):
+        pts, nodes = eval_source_frame(root, sample)
+        _, w_twin = pixel_anchors_euclidean(pts, nodes, None, EVAL_COVERAGE,
+                                            device="cpu")
+        w = formats.load_float_image(os.path.join(root,
+                                                  sample["pixel_weights"]))
+        weight_gap = max(weight_gap, float(np.abs(
+            w - w_twin.transpose(2, 0, 1)).max()))
+    pts, nodes = eval_source_frame(root, eval_samples(root)[0])
+    a_k, w_k = pixel_anchors_euclidean(pts, nodes, None, EVAL_COVERAGE,
+                                       device=dev)
+    a_t, w_t = pixel_anchors_euclidean(pts, nodes, None, EVAL_COVERAGE,
+                                       device="cpu")
+    frame0 = dict(
+        anchors_equal_twin=bool((a_k == a_t).all()),
+        anchors_equal_jax=bool((a_k == ref_npz["anchors_frame0"]).all()),
+        weight_gap_twin=float(np.abs(w_k - w_t).max()),
+        weight_gap_jax=float(np.abs(w_k - ref_npz["weights_frame0"]).max()),
+        anchored_pixels=int((a_k[..., 0] >= 0).sum()))
+    emit({"phase": "evaluate", "tool": "export_deepdeform", "s": s,
+          "files": len(names), "files_differing": differing,
+          "weight_gap_twin": weight_gap, "launches": counts,
+          "pixel_anchors_frame0": frame0})
+    assert set(names) == set(ref) and not differing, differing
+    assert weight_gap <= EVAL_WEIGHT_TOL, weight_gap
+    assert frame0["anchors_equal_twin"] and frame0["anchors_equal_jax"]
+    assert max(frame0["weight_gap_twin"],
+               frame0["weight_gap_jax"]) <= EVAL_WEIGHT_TOL, frame0
+    assert counts["knn"] == len(eval_samples(root)), counts
+    (_, P, (q, refs, _, valid)) = tap.calls[0]
+    assert valid is None
+    row = knn_row(f"export_deepdeform_pixel_anchors_P{P}", q, refs,
+                  torch.ones(refs.shape[0], dtype=torch.bool,
+                             device=refs.device))[0]
+    row["launches"] = counts["knn"]
+    return row
+
+
+def eval_deepdeform(dev, root, ref_npz):
+    """evaluate_deepdeform on the card's export with --gt_flow and with
+    checkpoints/flow.npz, each sample held to JAX's (EVAL_MM_TOL,
+    EVAL_PX_TOL, the same valid solves); K3'/K4' against their twins on
+    the first solve of the ground-truth run. Returns their rows."""
+    import numpy as np
+    import torch
+
+    from occlusionfusion_tpu_torch import device as D
+    from occlusionfusion_tpu_torch.scripts import evaluate_deepdeform
+    from occlusionfusion_tpu_torch.solvers import gauss_newton_dense as GND
+
+    rows = []
+    for name, flag in (("gt", ["--gt_flow"]),
+                       ("flow", ["--flow_weights", EVAL_FLOW])):
+        t0 = time.perf_counter()
+        D.reset_launch_counts()
+        with SolveTap(1, module=GND) as stap:
+            metrics, per = evaluate_deepdeform.main(
+                ["--root", root] + flag + ["--device", dev])
+        torch.cuda.synchronize()
+        counts = dict(D.launch_counts)
+        gaps = {}
+        for key, ref_key in (("graph_mm", "graph_mm"),
+                             ("epe3d_mm", "epe3d_mm"),
+                             ("epe2d_px", "epe2d_px")):
+            ref = ref_npz[f"dd_{name}_{ref_key}"]
+            got = np.asarray(per[key], np.float64)
+            assert got.shape == ref.shape, (key, got.shape, ref.shape)
+            gaps[key] = float(np.abs(got - ref).max()) if got.size else 0.0
+        valid_ref = ref_npz[f"dd_{name}_valid"]
+        cand_ref = ref_npz[f"dd_{name}_candidates"]
+        out = dict(s=time.perf_counter() - t0, metrics=metrics,
+                   max_gaps=gaps, valid_solves=int(sum(per["valid"])),
+                   valid_solves_jax=int(valid_ref.sum()),
+                   candidates=per["n_ok"],
+                   candidates_jax=cand_ref.tolist(), launches=counts)
+        emit({"phase": "evaluate", "tool": f"evaluate_deepdeform_{name}",
+              **out})
+        assert gaps["graph_mm"] <= EVAL_MM_TOL, out
+        assert gaps["epe3d_mm"] <= EVAL_MM_TOL, out
+        assert gaps["epe2d_px"] <= EVAL_PX_TOL, out
+        assert per["valid"] == valid_ref.tolist(), out
+        n_solves = len(per["valid"]) * 4  # --gn_iters 4
+        assert counts["point_term_blocks"] == n_solves, counts
+        assert counts["arap_term_blocks"] == n_solves, counts
+        if name == "gt":
+            rows = gn_kernel_rows("evaluate_deepdeform_sample_0",
+                                  *gn_path_inputs(stap.call))
+            for r in rows:
+                r["launches"] = counts[r["name"]]
+    return rows
+
+
+@contextlib.contextmanager
+def scaled_depths(module, scale):
+    """Within the block ``module``'s (a deformingthings4d module of either
+    package) rendered depths come out times ``scale``."""
+    import numpy as np
+
+    orig = (module.anime_to_depth_sequence, module.anime_to_rgbd_sequence)
+    f = np.float32(scale)
+
+    def depth_seq(*a, **kw):
+        d, gt = orig[0](*a, **kw)
+        return (d * f).astype(np.float32), gt
+
+    def rgbd_seq(*a, **kw):
+        d, c, gt = orig[1](*a, **kw)
+        return (d * f).astype(np.float32), c, gt
+
+    module.anime_to_depth_sequence, module.anime_to_rgbd_sequence = (
+        depth_seq, rgbd_seq)
+    try:
+        yield
+    finally:
+        module.anime_to_depth_sequence, module.anime_to_rgbd_sequence = orig
+
+
+def eval_check_dt4d(name, runs, ref_npz):
+    """evaluate_dt4d's runs (the port's details: the unscaled run first,
+    then one per depth scale of EVAL_ENSEMBLE or none) against JAX's
+    ensemble (the unscaled run and one per scale), by F9's rule: a frame
+    where both ensembles agree within a limit (EVAL_DT4D_TOL on the EPE,
+    EVAL_CORRESPONDENCE_TOL on the counts) is stable and holds the port's
+    unscaled run within that limit of JAX's; at the other frames every
+    port run lies within JAX's range widened by the larger of the two
+    ranges. ate_m likewise. Frame 1 must be stable."""
+    import numpy as np
+
+    def held(port, jax, rel):
+        scale = np.maximum(np.abs(jax[0]), 1) if rel else 1.0
+        limit = EVAL_CORRESPONDENCE_TOL if rel else EVAL_DT4D_TOL
+        r_j = (jax.max(0) - jax.min(0)) / scale
+        r_p = (port.max(0) - port.min(0)) / scale
+        stable = (r_j <= limit) & (r_p <= limit)
+        gap = np.abs(port[0] - jax[0]) / scale
+        w = np.maximum(r_j, r_p) * scale
+        inside = ((port >= jax.min(0) - w) & (port <= jax.max(0) + w)).all(0)
+        ok = np.where(stable, gap <= limit, inside)
+        return (np.atleast_1d(stable), np.atleast_1d(ok),
+                float(np.max(gap)), float(np.max(r_j)))
+
+    epe_j = np.concatenate([ref_npz[f"dt4d_{name}_epe"][None],
+                            ref_npz[f"dt4d_{name}_ensemble_epe"]])
+    corr_j = np.concatenate([ref_npz[f"dt4d_{name}_correspondences"][None],
+                             ref_npz[f"dt4d_{name}_ensemble_correspondences"]
+                             ]).astype(np.float64)
+    ate_j = np.concatenate([ref_npz[f"dt4d_{name}_ate"][None],
+                            ref_npz[f"dt4d_{name}_ensemble_ate"]])
+    epe = np.asarray([r["per_frame_epe"] for r in runs])
+    corr = np.asarray([r["n_correspondences"] for r in runs], np.float64)
+    ate = np.asarray([r["ate_m"] for r in runs])
+    assert epe.shape[1:] == epe_j.shape[1:] and corr.shape[1:] == (
+        corr_j.shape[1:])
+    s_e, ok_e, gap_e, r_e = held(epe, epe_j, False)
+    s_c, ok_c, gap_c, r_c = held(corr, corr_j, True)
+    s_a, ok_a, gap_a, r_a = held(ate, ate_j, False)
+    out = dict(max_epe_gap_m=gap_e, max_correspondence_gap=gap_c,
+               ate_gap_m=gap_a, jax_epe_range_m=r_e,
+               jax_correspondence_range=r_c, jax_ate_range_m=r_a,
+               unstable_frames=[int(i) + 1 for i in
+                                np.flatnonzero(~(s_e & s_c))],
+               ate_stable=bool(s_a[0]), port_runs=len(runs),
+               held=bool(ok_e.all() and ok_c.all() and ok_a.all()))
+    assert s_e[0] and s_c[0], out
+    assert out["held"], (out, ok_e.tolist(), ok_c.tolist())
+    return out
+
+
+def eval_dt4d(dev, root, ref_npz, scalars):
+    """evaluate_dt4d on the limbs clip at its defaults and with the
+    perception settings (the latter also on the depths scaled by
+    EVAL_ENSEMBLE), each held by eval_check_dt4d; then --trajectory
+    on JAX's estimated poses of the first, held to JAX's score within
+    EVAL_TRAJECTORY_TOL. Returns K1's rows (initialize: the voxel
+    centres, the model points) and K2's (the last frame's warp) of the
+    default run."""
+    import numpy as np
+    import torch
+
+    from occlusionfusion_tpu_torch import device as D
+    from occlusionfusion_tpu_torch.scripts import evaluate_dt4d
+
+    from occlusionfusion_tpu_torch.data import deformingthings4d as DT
+
+    rows = []
+    for name in ("gn_dense", "perception"):
+        t0 = time.perf_counter()
+        D.reset_launch_counts()
+        with KernelInputTap(None, keep_all=True) as tap:
+            metrics, details = evaluate_dt4d.main(eval_dt4d_argv(name)
+                                                  + ["--device", dev])
+        torch.cuda.synchronize()
+        counts = dict(D.launch_counts)
+        s = time.perf_counter() - t0
+        runs = [details]
+        if name == "perception":  # the port's ensemble, F17
+            for scale in EVAL_ENSEMBLE[name]:
+                with scaled_depths(DT, 1.0 + scale):
+                    runs.append(evaluate_dt4d.main(
+                        eval_dt4d_argv(name) + ["--device", dev])[1])
+        out = dict(s=s, ensemble_s=time.perf_counter() - t0 - s,
+                   metrics=metrics, launches=counts,
+                   **eval_check_dt4d(name, runs, ref_npz))
+        emit({"phase": "evaluate", "tool": f"evaluate_dt4d_{name}", **out})
+        frames = metrics["frames"] - 1
+        assert counts["lbs_warp"] >= frames, counts
+        assert counts["knn"] >= 3, counts  # initialize's two, the GT skin
+        assert counts["point_term_blocks"] > 0, counts
+        if name == "gn_dense":
+            # initialize's two calls: the voxel centres, the model points
+            for _, P, (q, refs, _, valid) in tap.calls[:2]:
+                row = knn_row(f"evaluate_dt4d_initialize_P{P}", q, refs,
+                              valid)[0]
+                row["launches"] = counts["knn"]
+                rows.append(row)
+            row = lbs_row(f"evaluate_dt4d_frame_{frames}", *tap.lbs)
+            row["launches"] = counts["lbs_warp"]
+            rows.append(row)
+        del tap
+    path = os.path.join(root, "trajectory.npz")
+    np.savez(path, **{k: ref_npz[f"trajectory_{k}"] for k in (
+        "frame_ids", "rotations", "translations")})
+    metrics, _ = evaluate_dt4d.main(eval_dt4d_argv("gn_dense")
+                                    + ["--trajectory", path, "--device", dev])
+    ref = scalars["trajectory"]
+    gap = abs(metrics["pose_ate_m"] - ref["pose_ate_m"])
+    emit({"phase": "evaluate", "tool": "evaluate_dt4d_trajectory",
+          "metrics": metrics, "pose_ate_gap_m": gap})
+    assert gap <= EVAL_TRAJECTORY_TOL and (
+        metrics["keyframes"] == ref["keyframes"]), (metrics, ref)
+    return rows
+
+
+def eval_visualize(dev, root):
+    """visualize_demo on run_demo's output for cli_demo_dir's first
+    EVAL_DEMO_FRAMES frames: each PNG read back at its size."""
+    from occlusionfusion_tpu_torch.fusion.frame_loader import read_png
+    from occlusionfusion_tpu_torch.scripts import run_demo, visualize_demo
+
+    t0 = time.perf_counter()
+    demo_in, demo_out = (os.path.join(root, d) for d in ("demo_in",
+                                                         "demo_out"))
+    cli_demo_dir(demo_in)
+    run_demo.main(["--input", demo_in, "--output", demo_out, "--frames",
+                   str(EVAL_DEMO_FRAMES), "--device", dev])
+    written = visualize_demo.main(
+        ["--input", demo_in, "--output", demo_out, "--out_dir",
+         os.path.join(root, "viz"), "--frames"]
+        + [str(f) for f in range(1, EVAL_DEMO_FRAMES + 1)])
+    shapes = [read_png(p).shape for p in written]
+    emit({"phase": "evaluate", "tool": "visualize_demo",
+          "s": time.perf_counter() - t0, "pngs": len(written),
+          "shapes": shapes})
+    H, W = visualize_demo.PANEL_HW
+    assert len(written) == EVAL_DEMO_FRAMES
+    assert all(sh == (H, 2 * W, 3) for sh in shapes), shapes
+
+
+def phase_evaluate(dev):
+    """The evaluation and export tools in-process (``main(argv)``,
+    ``--device cuda``) at their defaults, held to the JAX scripts'
+    results (EVAL_NPZ from scripts/torch_eval_reference.py, JAX on the
+    CPU): export_deepdeform (eval_export), evaluate_deepdeform
+    (eval_deepdeform), evaluate_dt4d (eval_dt4d) and visualize_demo
+    (eval_visualize). Returns the kernel rows on the tools' inputs: K1
+    (the export's pixel anchors; evaluate_dt4d's initialize), K2
+    (evaluate_dt4d's warp) and K3'/K4' (an evaluate_deepdeform solve)."""
+    import tempfile
+
+    import numpy as np
+
+    ref_npz = np.load(EVAL_NPZ)
+    scalars = json.loads(str(ref_npz["scalars"]))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as root:
+        dd = os.path.join(root, "dd")
+        rows = [eval_export(dev, dd, ref_npz)]
+        rows += eval_deepdeform(dev, dd, ref_npz)
+        rows += eval_dt4d(dev, root, ref_npz, scalars)
+        eval_visualize(dev, root)
+    return rows
+
+
 def main(argv) -> int:
     t_all = time.perf_counter()
     import torch
@@ -5728,6 +6146,14 @@ def main(argv) -> int:
         emit({"phase": "kernel", **row})
     rows += cli_rows
     emit({"phase": "cli_done", "s": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    eval_rows = phase_evaluate(dev)
+    for row in eval_rows:
+        emit({"phase": "kernel", **row})
+    assert {r["name"] for r in eval_rows} == set(PATH_KERNELS)
+    rows += eval_rows
+    emit({"phase": "evaluate_done", "s": time.perf_counter() - t})
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

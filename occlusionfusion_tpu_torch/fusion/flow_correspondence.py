@@ -26,6 +26,7 @@ from occlusionfusion_tpu_torch.geometry.camera import (
     resize_bilinear,
 )
 from occlusionfusion_tpu_torch.models.pwcnet import bf16_copy
+from occlusionfusion_tpu_torch.ops.segment_ops import segment_sum
 
 FLOW_SCALE = 20.0  # PWC predicts flow / 20 at quarter resolution
 
@@ -203,3 +204,23 @@ def sample_weight_field(weights, u, v, nms_active: bool = False):
         return weights[vi, ui]
     uv = torch.stack([u, v], dim=-1)
     return bilinear_sample(weights[..., None], uv)[:, 0]
+
+
+def predicted_node_locations(target_points, valid, pixel_anchors,
+                             pixel_weights, num_nodes: int):
+    """Per-node predicted target: the skinning-weighted mean of the flow
+    targets [H, W, 3] of the valid pixels anchored to each node. Returns
+    (locations [N, 3], observed [N])."""
+    K = pixel_anchors.shape[-1]
+    flat_anchor = pixel_anchors.reshape(-1).long()
+    flat_w = (pixel_weights * valid[..., None]).reshape(-1)
+    flat_w = torch.where(flat_anchor >= 0, flat_w, torch.zeros_like(flat_w))
+    flat_anchor = torch.clamp(flat_anchor, min=0)
+    flat_pts = torch.repeat_interleave(target_points.reshape(-1, 3), K, dim=0)
+    num = segment_sum(flat_pts * flat_w[:, None], flat_anchor, num_nodes)
+    den = segment_sum(flat_w, flat_anchor, num_nodes)
+    observed = den > 1e-6
+    locations = torch.where(
+        observed[:, None], num / torch.clamp(den[:, None], min=1e-6),
+        torch.zeros_like(num))
+    return locations, observed

@@ -75,11 +75,35 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+# Adam7 passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _decode_image(raw: bytes, height: int, width: int, depth: int,
+                  channels: int) -> np.ndarray:
+    """Filtered scanlines of one (sub-)image -> [height, width, channels]
+    samples, uint8 at bit depths up to 8, uint16 at 16."""
+    bits = channels * depth
+    stride = (width * bits + 7) // 8
+    img = _unfilter(raw, height, stride, max(1, bits // 8))
+    if depth == 16:
+        return img.view(">u2").astype(np.uint16).reshape(height, width,
+                                                         channels)
+    if depth == 8:
+        return img.reshape(height, width, channels)
+    # 1, 2 or 4 bits per sample, one channel
+    bitplane = np.unpackbits(img, axis=1)[:, : width * depth]
+    weights = 1 << np.arange(depth - 1, -1, -1, dtype=np.uint8)
+    return (bitplane.reshape(height, width, depth) * weights).sum(
+        -1, dtype=np.uint8)[..., None]
+
+
 def read_png(path: str, expand_palette: bool = True) -> np.ndarray:
-    """A non-interlaced PNG -> [H, W] (one channel) or [H, W, C] array,
-    uint8 at bit depths up to 8, uint16 at 16. A palette image comes
-    back as RGB, or as its [H, W] indices without ``expand_palette``
-    (what Pillow's ``np.asarray`` gives)."""
+    """A PNG, interlaced (Adam7) or not -> [H, W] (one channel) or
+    [H, W, C] array, uint8 at bit depths up to 8, uint16 at 16. A palette
+    image comes back as RGB, or as its [H, W] indices without
+    ``expand_palette`` (what Pillow's ``np.asarray`` gives)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != b"\x89PNG\r\n\x1a\n":
@@ -99,23 +123,22 @@ def read_png(path: str, expand_palette: bool = True) -> np.ndarray:
         elif ctype == b"IEND":
             break
     width, height, depth, ctype, _, _, interlace = header
-    if interlace:
-        raise NotImplementedError(f"{path}: interlaced PNG is not supported")
     channels = _PNG_CHANNELS[ctype]
-    bits = channels * depth
-    stride = (width * bits + 7) // 8
-    img = _unfilter(zlib.decompress(b"".join(idat)), height, stride,
-                    max(1, bits // 8))
-    if depth == 16:
-        img = img.view(">u2").astype(np.uint16).reshape(height, width,
-                                                        channels)
-    elif depth == 8:
-        img = img.reshape(height, width, channels)
-    else:  # 1, 2 or 4 bits per sample, one channel
-        bitplane = np.unpackbits(img, axis=1)[:, : width * depth]
-        weights = 1 << np.arange(depth - 1, -1, -1, dtype=np.uint8)
-        img = (bitplane.reshape(height, width, depth) * weights).sum(
-            -1, dtype=np.uint8)[..., None]
+    raw = zlib.decompress(b"".join(idat))
+    if not interlace:
+        img = _decode_image(raw, height, width, depth, channels)
+    else:  # Adam7: seven passes, each filtered as an image of its own
+        dtype = np.uint16 if depth == 16 else np.uint8
+        img = np.zeros((height, width, channels), dtype)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            w, h = -(-(width - x0) // dx), -(-(height - y0) // dy)
+            if w <= 0 or h <= 0:
+                continue
+            size = h * (1 + (w * channels * depth + 7) // 8)
+            img[y0::dy, x0::dx] = _decode_image(raw[pos:pos + size], h, w,
+                                                depth, channels)
+            pos += size
     if ctype == 3 and expand_palette:
         return palette[img[..., 0]]
     return img[..., 0] if channels == 1 else img

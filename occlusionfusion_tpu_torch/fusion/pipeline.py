@@ -159,7 +159,8 @@ class FusionConfig:
     # "dense" lifts every pixel and samples at the model projections;
     # "sparse" lifts at the projections only
     flow_lift: str = "dense"
-    # sparse lift only: PWC + MaskNet in bfloat16; MaskNet at 1/N
+    # sparse lift only: PWC + MaskNet in bfloat16; MaskNet at 1/N (the
+    # dense lift runs in f32 at full resolution and ignores both, as JAX)
     flow_bf16: bool = False
     mask_downscale: int = 1
     # Lepard scene flow (lepard_net given to DynamicFusion) on a
@@ -234,10 +235,6 @@ class FusionConfig:
         if self.lepard_every < 1:
             raise ValueError(
                 f"lepard_every must be >= 1, got {self.lepard_every}")
-        if self.flow_lift == "dense" and (self.flow_bf16
-                                          or self.mask_downscale != 1):
-            raise ValueError("flow_bf16 and mask_downscale take "
-                             "flow_lift='sparse'")
 
 
 class DynamicFusion:

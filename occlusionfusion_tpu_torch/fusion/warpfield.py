@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from occlusionfusion_tpu_torch.geometry.edwarp import ed_warp
+from occlusionfusion_tpu_torch.geometry.edwarp import ed_warp, ed_warp_normals
 from occlusionfusion_tpu_torch.geometry.skinning import skinning_weights
 
 GRAPH_K = 4  # anchors per point
@@ -53,7 +53,7 @@ def skin(state: WarpFieldState, points, node_coverage: float) -> SkinTable:
     4 * node_coverage, weights normalized with +1e-6."""
     anchors, weights, valid = skinning_weights(
         points, state.node_positions, state.node_valid, node_coverage,
-        k=GRAPH_K,
+        k=GRAPH_K, require_all_anchors=True, norm_eps=1e-6,
     )
     return SkinTable(anchors=anchors, weights=weights, valid=valid)
 
@@ -67,6 +67,13 @@ def deform_points(state: WarpFieldState, points, table: SkinTable):
     return torch.where(table.valid[:, None], warped, points)
 
 
+def deform_normals(state: WarpFieldState, normals, table: SkinTable):
+    """Rotate normals; unreachable points keep theirs."""
+    rotated = ed_warp_normals(normals, state.rotations, table.anchors,
+                              table.weights)
+    return torch.where(table.valid[:, None], rotated, normals)
+
+
 def update_transforms(state: WarpFieldState, rotations, translations):
     return state._replace(rotations=rotations, translations=translations)
 
@@ -76,6 +83,12 @@ def to_origin_form(state: WarpFieldState):
     g = state.node_positions
     Rg = torch.einsum("nij,nj->ni", state.rotations, g)
     return state.rotations, state.translations + g - Rg
+
+
+def from_origin_form(node_positions, rotations, translations_origin):
+    """Origin-relative t' -> pivoted t = t' - g + R g."""
+    Rg = torch.einsum("nij,nj->ni", rotations, node_positions)
+    return rotations, translations_origin - node_positions + Rg
 
 
 def left_compose_rigid(state: WarpFieldState, R, t) -> WarpFieldState:

@@ -25,3 +25,21 @@ def ed_warp(
     local = points[:, None, :] - g
     rotated = torch.einsum("pkij,pkj->pki", R, local)
     return torch.sum(anchor_weights[..., None] * (rotated + g + t), dim=1)
+
+
+def ed_warp_normals(
+    normals: torch.Tensor,  # [P, 3]
+    node_rotations: torch.Tensor,  # [N, 3, 3]
+    anchors: torch.Tensor,  # [P, K]
+    anchor_weights: torch.Tensor,  # [P, K]
+    renormalize: bool = True,
+) -> torch.Tensor:
+    """Normals through the blended node rotations, n' = sum_k w_k R_k n,
+    renormalized unless asked not to."""
+    R = node_rotations[anchors.long()]  # [P, K, 3, 3]
+    rotated = torch.einsum("pkij,pj->pki", R, normals)
+    blended = torch.sum(anchor_weights[..., None] * rotated, dim=1)
+    if renormalize:
+        norm = torch.linalg.vector_norm(blended, dim=-1, keepdim=True)
+        blended = blended / torch.clamp(norm, min=1e-8)
+    return blended

@@ -89,3 +89,8 @@ def weighted_kabsch(src, dst, weights):
     R = best_rotation(H)
     t = c_dst - torch.einsum("...ij,...j->...i", R, c_src)
     return R, t
+
+
+def kabsch(src, dst):
+    """Unweighted rigid alignment; see :func:`weighted_kabsch`."""
+    return weighted_kabsch(src, dst, torch.ones_like(src[..., 0]))

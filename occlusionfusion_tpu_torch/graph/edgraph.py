@@ -111,6 +111,61 @@ def build_graph_from_mesh(vertices: np.ndarray, faces: np.ndarray,
     return data
 
 
+def build_graph_from_depth(point_image: np.ndarray,
+                           config: GraphConfig) -> GraphData:
+    """Depth route: triangulate the [H, W, 3] point image, then build."""
+    verts, faces, _ = native.mesh_from_depth(point_image,
+                                             config.max_triangle_edge)
+    return build_graph_from_mesh(verts, faces, config)
+
+
+_LATTICE_OFFSETS = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1),
+                    (1, 0), (1, 1))
+
+
+def build_regular_graph(point_image: np.ndarray, nodes_x: int, nodes_y: int,
+                        max_depth_diff: float = 0.1) -> GraphData:
+    """Regular-grid graph over a depth frame: nodes on a uniform pixel
+    lattice at valid depth, 8-connected lattice edges, pruned where the
+    depth gap exceeds ``max_depth_diff``; the weights' coverage is the
+    median edge length."""
+    H, W, _ = point_image.shape
+    ys = np.linspace(0, H - 1, nodes_y).round().astype(int)
+    xs = np.linspace(0, W - 1, nodes_x).round().astype(int)
+    grid_pts = point_image[np.ix_(ys, xs)]  # [ny, nx, 3]
+    valid = grid_pts[..., 2] > 0
+    ids = -np.ones((nodes_y, nodes_x), np.int32)
+    ids[valid] = np.arange(valid.sum(), dtype=np.int32)
+    n = int(valid.sum())
+    edges = -np.ones((n, 8), np.int32)
+    dists = np.full((n, 8), np.inf, np.float32)
+    for gy, gx in zip(*np.nonzero(valid)):
+        a, slot = ids[gy, gx], 0
+        for dy, dx in _LATTICE_OFFSETS:
+            ny_, nx_ = gy + dy, gx + dx
+            if not (0 <= ny_ < nodes_y and 0 <= nx_ < nodes_x):
+                continue
+            b = ids[ny_, nx_]
+            if b < 0 or (abs(grid_pts[gy, gx, 2] - grid_pts[ny_, nx_, 2])
+                         > max_depth_diff):
+                continue
+            edges[a, slot] = b
+            dists[a, slot] = np.linalg.norm(grid_pts[gy, gx]
+                                            - grid_pts[ny_, nx_])
+            slot += 1
+    coverage = float(np.nanmedian(dists[np.isfinite(dists)])) if n else 0.05
+    clusters, sizes = native.compute_clusters(edges)
+    return GraphData(
+        nodes=grid_pts[valid].astype(np.float32),
+        node_indices=np.flatnonzero(valid.reshape(-1)).astype(np.int32),
+        edges=edges,
+        edge_weights=_edge_weights(dists, coverage or 0.05),
+        edge_distances=dists,
+        clusters=clusters,
+        cluster_sizes=sizes,
+    )
+
+
 def _greedy_subsample(old_nodes: np.ndarray, coverage: float):
     """Greedy subsample with nearest-accepted up-map."""
     down_idx: list[int] = []

@@ -2,8 +2,9 @@
 ``occlusionfusion_tpu/graph/native.py``).
 
 ``csrc/graph_builder.cpp`` holds the sequential host ops that run only at
-keyframes: mesh erosion, greedy node sampling, Dijkstra geodesic edges,
-connected components and marching cubes. It is built with ``g++`` at
+keyframes: mesh-from-depth triangulation, mesh erosion, greedy node
+sampling, Dijkstra geodesic edges and anchors, connected components and
+marching cubes. It is built with ``g++`` at
 first use into the package's git-ignored ``_build/`` directory and
 rebuilt when the source is newer.
 """
@@ -48,6 +49,11 @@ def _load():
     i32p = ctypes.POINTER(ctypes.c_int32)
     f32p = ctypes.POINTER(ctypes.c_float)
     u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.mesh_from_depth.restype = ctypes.c_int
+    lib.mesh_from_depth.argtypes = [
+        f32p, ctypes.c_int, ctypes.c_int, ctypes.c_float, f32p, i32p, i32p,
+        i32p,
+    ]
     lib.erode_mesh.restype = None
     lib.erode_mesh.argtypes = [
         f32p, ctypes.c_int, i32p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -60,6 +66,11 @@ def _load():
     ]
     lib.geodesic_edges.restype = None
     lib.geodesic_edges.argtypes = [
+        f32p, ctypes.c_int, i32p, ctypes.c_int, i32p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, i32p, f32p,
+    ]
+    lib.geodesic_anchors.restype = None
+    lib.geodesic_anchors.argtypes = [
         f32p, ctypes.c_int, i32p, ctypes.c_int, i32p, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, i32p, f32p,
     ]
@@ -84,6 +95,24 @@ def _i32(a):
 
 def _ptr(a, typ):
     return a.ctypes.data_as(ctypes.POINTER(typ))
+
+
+def mesh_from_depth(point_image: np.ndarray, max_edge_len: float):
+    """[H, W, 3] point image -> (vertices [V, 3], faces [F, 3], vertex_map
+    [H, W] int32 with -1 for unmeshed pixels)."""
+    lib = _load()
+    H, W, _ = point_image.shape
+    pts = _f32(point_image)
+    verts = np.empty((H * W, 3), np.float32)
+    faces = np.empty((2 * H * W, 3), np.int32)
+    vmap = np.empty((H * W,), np.int32)
+    nf = ctypes.c_int32(0)
+    nv = lib.mesh_from_depth(
+        _ptr(pts, ctypes.c_float), H, W, ctypes.c_float(max_edge_len),
+        _ptr(verts, ctypes.c_float), _ptr(faces, ctypes.c_int32),
+        _ptr(vmap, ctypes.c_int32), ctypes.byref(nf),
+    )
+    return verts[:nv].copy(), faces[: nf.value].copy(), vmap.reshape(H, W)
 
 
 def erode_mesh(vertices, faces, iterations: int = 4, min_neighbors: int = 4):
@@ -136,6 +165,25 @@ def geodesic_edges(vertices, faces, node_ids, k: int = 8,
         _ptr(dists, ctypes.c_float),
     )
     return edges, dists
+
+
+def geodesic_anchors(vertices, faces, node_ids, k: int = 4,
+                     max_influence: float = 0.0):
+    """Per-vertex k geodesically nearest nodes: (anchors [V, k] int32
+    (-1 pad), dists [V, k] f32 (inf pad))."""
+    lib = _load()
+    v = _f32(vertices)
+    f = _i32(faces)
+    ids = _i32(node_ids)
+    anchors = np.empty((v.shape[0], k), np.int32)
+    dists = np.empty((v.shape[0], k), np.float32)
+    lib.geodesic_anchors(
+        _ptr(v, ctypes.c_float), v.shape[0], _ptr(f, ctypes.c_int32),
+        f.shape[0], _ptr(ids, ctypes.c_int32), ids.shape[0], k,
+        ctypes.c_float(max_influence), _ptr(anchors, ctypes.c_int32),
+        _ptr(dists, ctypes.c_float),
+    )
+    return anchors, dists
 
 
 def compute_clusters(edges: np.ndarray):

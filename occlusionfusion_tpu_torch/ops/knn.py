@@ -180,3 +180,21 @@ def knn(queries, refs, k: int, valid=None):
     if queries.is_cuda:
         return knn_cuda(queries.contiguous(), refs.contiguous(), k, valid)
     return knn_torch(queries, refs, k, valid)
+
+
+def radius_neighbors(queries, refs, radius: float, max_k: int, q_valid=None,
+                     r_valid=None):
+    """Fixed-max-K radius search with shadow-index padding: [P, max_k]
+    int32 neighbour indices; a slot with no neighbour inside ``radius``
+    gets the shadow index N (one past the last ref). Runs the twin, as
+    the JAX package runs ``knn_lax`` here."""
+    N = refs.shape[0]
+    d2, idx = knn_torch(queries, refs, min(max_k, N), r_valid)
+    in_radius = d2 <= radius * radius
+    if q_valid is not None:
+        in_radius = in_radius & q_valid[:, None]
+    out = torch.where(in_radius, idx, torch.full_like(idx, N))
+    if out.shape[1] < max_k:
+        out = torch.nn.functional.pad(out, (0, max_k - out.shape[1]),
+                                      value=N)
+    return out.to(torch.int32)

@@ -43,3 +43,22 @@ def segment_softmax(logits, segment_ids, num_segments: int, edge_mask=None,
         expv = torch.where(edge_mask, expv, torch.zeros_like(expv))
     denom = segment_sum(expv, ids, num_segments)
     return expv / (denom[ids] + eps)
+
+
+def segment_weighted_sum(values, weights, segment_ids, num_segments: int):
+    """sum_e w_e * v_e grouped by segment: [E, C], [E] -> [N, C]."""
+    return segment_sum(values * weights[:, None], segment_ids, num_segments)
+
+
+def segment_mean(values, segment_ids, num_segments: int, mask=None,
+                 eps: float = 1e-12):
+    """Masked mean per segment: [E, C] -> [N, C]."""
+    if mask is not None:
+        values = torch.where(mask[:, None], values, torch.zeros_like(values))
+        ones = mask.to(values.dtype)
+    else:
+        ones = torch.ones(values.shape[0], dtype=values.dtype,
+                          device=values.device)
+    total = segment_sum(values, segment_ids, num_segments)
+    count = segment_sum(ones, segment_ids, num_segments)
+    return total / torch.clamp(count[:, None], min=eps)

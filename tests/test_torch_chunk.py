@@ -171,8 +171,6 @@ def test_frame_stager_on_cpu():
     (dict(flow_lift="nearest"), ValueError),
     (dict(lepard_subsample="random"), ValueError),
     (dict(lepard_every=0), ValueError),
-    (dict(flow_bf16=True), ValueError),  # bf16 takes the sparse lift
-    (dict(mask_downscale=2), ValueError),
 ])
 def test_invalid_settings_are_refused(kw, err):
     with pytest.raises(err):

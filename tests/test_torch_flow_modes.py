@@ -172,7 +172,7 @@ def one_step(frames, flow_tree, engine, use_mask=True, **flow):
     """(JAX info, JAX fusion, port info, port fusion) of one step after
     initialize, ``engine`` "fused" (register_frame_fused) or "stepwise"
     (register_frame), flow on with the settings ``flow``."""
-    (tree, (pwc, mask)), (depths, colors) = flow_tree, frames
+    (tree, _), (depths, colors) = flow_tree, frames
     cfg_j = FusionConfigJ(
         graph=GraphConfigJ(node_coverage=0.04, min_neighbors=2),
         gn=GNConfigJ(linear_solver="cholesky", assembly="blocks", **GN),
@@ -180,26 +180,34 @@ def one_step(frames, flow_tree, engine, use_mask=True, **flow):
     fj = DynamicFusionJ(SeqJ(colors, depths, INTR_J), cfg_j,
                         flow_params=tree["pwc"],
                         mask_params=tree["mask"] if use_mask else None)
+    return (_step(fj, engine)
+            + one_step_port(frames, flow_tree, engine, use_mask, **flow))
+
+
+def one_step_port(frames, flow_tree, engine="fused", use_mask=True, **flow):
+    """(port info, port fusion) of one_step."""
+    (_, (pwc, mask)), (depths, colors) = flow_tree, frames
     cfg = FusionConfig(graph=GraphConfig(node_coverage=0.04, min_neighbors=2),
                        gn=GNConfig(**GN), use_flow=True, **SMALL, **flow)
     ft = DynamicFusion(
         ArraySequence(colors, depths, Intrinsics(*(float(x) for x in INTR_J))),
         cfg, device="cpu", flow_net=pwc, mask_net=mask if use_mask else None)
-    out = []
-    for f in (fj, ft):
-        f.initialize(f.seq.load(0))
-        if engine == "stepwise":
-            info = f.register_frame(f.seq.load(1))
-            info = [info[k] for k in ("final_loss", "n_correspondences",
-                                      "n_visible_nodes")]
-        else:
-            sc, state, tables = f.build_fused(None)
-            state, info = f.register_frame_fused(sc, state, tables,
-                                                 f.seq.load(1), None)
-            f.adopt_fused_state(state)
-            info = [float(x) for x in np.asarray(info)[:3]]
-        out += [info, f]
-    return out
+    return _step(ft, engine)
+
+
+def _step(f, engine):
+    f.initialize(f.seq.load(0))
+    if engine == "stepwise":
+        info = f.register_frame(f.seq.load(1))
+        info = [info[k] for k in ("final_loss", "n_correspondences",
+                                  "n_visible_nodes")]
+    else:
+        sc, state, tables = f.build_fused(None)
+        state, info = f.register_frame_fused(sc, state, tables,
+                                             f.seq.load(1), None)
+        f.adopt_fused_state(state)
+        info = [float(x) for x in np.asarray(info)[:3]]
+    return [info, f]
 
 
 def assert_step_matches(info_j, fj, info_t, ft):
@@ -271,3 +279,21 @@ def test_bad_flow_settings_rejected():
     # patchwise NMS takes the dense lift, whatever flow_lift and bf16 say
     FusionConfig(flow_lift="sparse", flow_bf16=True, mask_downscale=2,
                  flow_mask_patch=4)
+
+
+@pytest.mark.parametrize("setting", [dict(flow_bf16=True),
+                                     dict(mask_downscale=2)])
+def test_dense_lift_runs_bf16_and_mask_downscale_in_f32(frames, flow_tree,
+                                                        setting):
+    """ROADMAP F16: the dense lift (the default) accepts flow_bf16 and
+    mask_downscale and runs in f32 at full resolution, as JAX's fused step
+    does (occlusionfusion_tpu/fusion/fused_step.py:308-309, :337-341): the
+    port's step equals its plain dense step bit for bit and JAX's with the
+    same setting at assert_step_matches' tolerances."""
+    info_j, fj, info_t, ft = one_step(frames, flow_tree, "fused",
+                                      flow_lift="dense", **setting)
+    assert_step_matches(info_j, fj, info_t, ft)
+    plain = one_step_port(frames, flow_tree, flow_lift="dense")
+    assert info_t == plain[0]
+    assert torch.equal(ft.warp.translations, plain[1].warp.translations)
+    assert torch.equal(ft.warp.rotations, plain[1].warp.rotations)

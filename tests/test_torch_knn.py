@@ -188,7 +188,8 @@ def test_skinning_weights_match_jax(coverage):
     a_j, w_j, ok_j = skinning_weights_jax(
         jnp.asarray(q), jnp.asarray(r), jnp.asarray(valid), coverage, **args
     )
-    a_t, w_t, ok_t = skinning_weights(tt(q), tt(r), tt(valid), coverage, k=4)
+    a_t, w_t, ok_t = skinning_weights(tt(q), tt(r), tt(valid), coverage,
+                                      **args)
     assert 0 < int(ok_t.sum()) < q.shape[0]
     np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_j))
     # weights compared per anchor id (tie order among anchors is free)

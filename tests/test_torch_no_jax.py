@@ -62,3 +62,58 @@ def test_port_never_names_the_jax_package_in_imports():
                 assert "jax" not in s.split()[1], (path, s)
                 assert not s.split()[1].startswith("occlusionfusion_tpu."), (
                     path, s)
+
+
+def test_tools_run_without_jax_pillow_or_matplotlib(tmp_path):
+    """The evaluation and export tools run on the CPU with jax, the JAX
+    package, Pillow and matplotlib blocked (the card's machine has none of
+    them): export_deepdeform at 64x64, evaluate_deepdeform with the flow
+    net on one sample (graphs padded to 128 nodes), evaluate_dt4d for 2
+    frames at 32^3 / 128 nodes, and visualize_demo on run_demo's
+    output."""
+    code = textwrap.dedent(f"""
+        import dataclasses, functools, os, sys
+        sys.path.insert(0, {REPO!r})
+        for name in ("jax", "jaxlib", "occlusionfusion_tpu", "PIL",
+                     "matplotlib"):
+            sys.modules[name] = None
+        import chip_smoke as CS
+        from occlusionfusion_tpu_torch.data import deepdeform as DD
+        from occlusionfusion_tpu_torch.fusion import pipeline as P
+        from occlusionfusion_tpu_torch.scripts import (
+            evaluate_deepdeform, evaluate_dt4d, export_deepdeform,
+            run_demo, visualize_demo)
+        DD.DeepDeformConfig = functools.partial(DD.DeepDeformConfig,
+                                                max_nodes=128)
+        cfg = P.FusionConfig
+        P.FusionConfig = lambda *a, **kw: dataclasses.replace(
+            cfg(*a, **kw), vol_dim=(32, 32, 32), voxel_size=0.012,
+            max_nodes=128, max_points=1024)
+        tmp, cpu = {str(tmp_path)!r}, ["--device", "cpu"]
+        dd = os.path.join(tmp, "dd")
+        export_deepdeform.main(["--out", dd, "--frames", "2", "--height",
+                                "64", "--width", "64", "--verts", "2000"]
+                               + cpu)
+        m, _ = evaluate_deepdeform.main(
+            ["--root", dd, "--height", "64", "--width", "64",
+             "--flow_weights", CS.EVAL_FLOW, "--max_samples", "1"] + cpu)
+        assert m["samples"] == 1 and "epe2d_px" in m, m
+        m, _ = evaluate_dt4d.main(["--synthetic", "--frames", "2"] + cpu)
+        assert m["frames"] == 2, m
+        demo_in, demo_out = (os.path.join(tmp, d) for d in ("in", "out"))
+        CS.cli_demo_dir(demo_in)
+        run_demo.main(["--input", demo_in, "--output", demo_out,
+                       "--frames", "1"] + cpu)
+        pngs = visualize_demo.main(["--input", demo_in, "--output",
+                                    demo_out, "--frames", "1", "--out_dir",
+                                    os.path.join(tmp, "viz")])
+        leaked = [m for m, v in sys.modules.items() if v is not None and (
+                  m.split(".")[0] in ("jax", "PIL", "matplotlib")
+                  or m.startswith("occlusionfusion_tpu."))]
+        assert not leaked, leaked
+        print("ok", len(pngs))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.splitlines()[-1] == "ok 1"

@@ -2,12 +2,38 @@
 inputs go to a JAX function and to its PyTorch port on the CPU."""
 
 import contextlib
+import fcntl
+import os
 
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
+
+
+def _build_jax_graph_builder():
+    """Build the JAX package's native graph builder once, under a file lock.
+
+    Its loader (``occlusionfusion_tpu/graph/native.py::_load``) compiles the
+    library in place at first use. Under ``pytest -n 6`` a second worker
+    can find the half-written file and fail with "file too short". Every
+    worker imports this module while it collects, and xdist hands out no
+    test before every worker has collected, so building here under a lock
+    leaves a whole library for every test, the JAX package's included."""
+    from occlusionfusion_tpu.graph import native as native_j
+    from occlusionfusion_tpu_torch.device import BUILD_DIR
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "graph_builder_jax.lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            native_j._load()
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+_build_jax_graph_builder()
 
 
 def tt(x, dtype=None):
@@ -205,3 +231,37 @@ def jax_run_once(fn, *args):
     import jax
 
     return jax.jit(fn).lower(*args).compile(QUICK_COMPILE)(*args)
+
+
+def run_jax_script(name, argv, frames=("main",), returns=()):
+    """Run the JAX package's ``scripts/<name>.py`` in this process with
+    ``argv`` and return ({function: its locals when it returned},
+    {function: [its return values]}) for the functions named in
+    ``frames`` and ``returns`` (defined anywhere), read by a profile hook:
+    the script's per-sample values before its JSON rounds them."""
+    import os
+    import runpy
+    import sys
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", f"{name}.py")
+    local, rets = {}, {f: [] for f in returns}
+
+    def hook(frame, event, arg):
+        if event != "return":
+            return
+        code = frame.f_code
+        if code.co_name in frames and code.co_filename == path:
+            local[code.co_name] = dict(frame.f_locals)
+        if code.co_name in rets:
+            rets[code.co_name].append(arg)
+
+    old_argv = sys.argv
+    sys.argv = [path] + list(argv)
+    sys.setprofile(hook)
+    try:
+        runpy.run_path(path, run_name="__main__")
+    finally:
+        sys.setprofile(None)
+        sys.argv = old_argv
+    return local, rets
