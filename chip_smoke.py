@@ -207,6 +207,30 @@ Phases, each printing one JSON line with its wall seconds:
      motion GNN's seq_encoder on a [16, 512, 4] history against one
      nn.LSTM call (1e-5), the x-slab integrate of the main path's 128^3
      volume equal to the whole volume's;
+ 24b. sharded (its rank work done by the 2 ranks of `distributed`, which
+     start once): the main path at full width through the sharded engine
+     (parallel/engine.py: tables and volume split over the 2 gloo ranks
+     on the one card, 16 eager frames), held to two single-rank eager
+     runs of the main path on the card: frames 1-2 within
+     __graft_entry__.py's 1e-4 m (translations) and 1e-3 (tsdf, against
+     the single-rank integrate through the sharded run's transforms;
+     the voxels over 1e-3 off a single-rank run at most 3x as many as
+     between the two, or 24), every
+     frame by F5's rule (median and 90th percentile node gap within
+     STEP_MEDIAN_LIMIT / STEP_PERCENTILE_LIMITS or 3x the gap between the
+     two single-rank runs), tracking within 4 mm, the ranks equal, K1,
+     K2, K3' and K4' launched on every rank (K3'/K4' four times a
+     frame), and K2 on a rank's voxel shard and K3'/K4' on its point
+     shard at frame 8 against their twins; parallel/dryrun.py's
+     dryrun_multichip phases on the same 2 ranks with
+     __graft_entry__.py's asserts; then, single-rank, the main path with
+     lbs_impl "dense" (its 4.29 GB dense skin): the dense warp against
+     its own bf16 arithmetic in f64 (1e-6 relative) and against K2 on the
+     same warp within that arithmetic's worst case (ROADMAP F18), timed,
+     and GNConfig(assembly="dense_j") on the main path's frame-8
+     input: its system against the K3' + K4' route's within 5e-5 of the
+     largest entry, its solve against the default route within 1e-6 m,
+     its assembly timed;
  25. cli: the inference CLIs in-process with --device cuda on a
      marching-cubes sphere clip (cli_clip, 17 frames): convert_dt4d at
      448x640, run_fusion at its defaults (N-ICP) and with --solver
@@ -247,7 +271,9 @@ N-ICP path's, with its launches, and K1 on each refresh's and growth's
 inputs of the keyframe path and K2 on its grown table, with that run's
 launches, and K3' and K4' on the tracking trainer's GN input with the
 tracking recipe's launches, K3' and K4' on each of the 4 ranks' shards
-with the rank's launches, and the CLI rows (K1 on run_fusion's
+with the rank's launches, K2 on each sharded-engine rank's voxel shard
+and K3'/K4' on its point shard with that rank's launches in the sharded
+main path, and the CLI rows (K1 on run_fusion's
 initialize and register_pair's skinning, K3'/K4' on register_pair
 gn_dense) with each CLI run's launches, and the evaluation tools' rows
 (K1 on the export's pixel anchors and evaluate_dt4d's initialize, K2 on
@@ -942,6 +968,25 @@ DIST_CG = dict(iters=3, cg_iters=16)
 DIST_CG_TOL = 1e-4
 DIST_LSTM_SHAPE = (16, 512, 4)
 DIST_LSTM_TOL = 1e-5
+# phase `sharded`: the main path on SHARDED_WORLD gloo ranks
+SHARDED_WORLD = 2
+SHARDED_T_TOL, SHARDED_TSDF_TOL = 1e-4, 1e-3  # __graft_entry__.py's
+SHARDED_EXACT_FRAMES = 2  # held within those limits; the rest by F5
+SHARDED_GAP_FACTOR = 3.0
+# frames 1-2: the voxels more than SHARDED_TSDF_TOL off single-rank run 1
+# within SHARDED_GAP_FACTOR times run 2's count, or within this floor,
+# whichever is larger (F5's rule: 3x the largest run-to-run count of the
+# card runs recorded in PERF.md, 8 voxels)
+SHARDED_VOXEL_FLOOR = 24
+DENSE_SKIN_MAX_BYTES = 1 << 33
+DENSE_SKIN_REL = 1e-5  # ops/lbs.py lbs_warp_dense's "~1e-5" (F18)
+DENSE_SKIN_F32_REL = 1e-6  # against the route's own arithmetic in f64
+# the frame-8 solve with dense_j against the default route: 5x the
+# 2.09e-7 m of the first card run (PERF.md); its system against
+# the block route's at tests/test_gn_assembly.py's 5e-5 relative, which
+# a TF32 or bf16 J^T J would miss
+DENSE_J_TOL = 1e-6
+DENSE_J_REL = 5e-5
 # the cli phase's clip: a marching-cubes sphere (r 0.14 m) receding 4 mm
 # a frame, converted at 448x640 with f = 1000 px, 17 frames
 CLI_FRAMES = 17
@@ -1190,12 +1235,31 @@ def knn_row(label, q, nodes, node_valid):
     return row, (d2_t, idx_t)
 
 
+def l2_cold_inputs(args, n_bytes: float):
+    """``args`` and copies of its tensors (others shared), enough that a
+    kernel that reads ``n_bytes`` of them, called on each set in turn,
+    finds no set left in the card's L2 cache from its last use: the
+    sets after one set's use move at least twice the L2's size."""
+    import torch
+
+    dev = next(a for a in args if torch.is_tensor(a)).device
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    k = int(-(-2 * l2 // max(int(n_bytes), 1))) + 1
+    return [args] + [tuple(a.clone() if torch.is_tensor(a) else a
+                           for a in args) for _ in range(k - 1)]
+
+
 def lbs_row(label, points, anchors, weights, valid, warp):
     """K2 against its twin on one input: valid points within 2e-4 m,
-    invalid ones passed through bit for bit; timed as knn_row does, with
-    the bound of this input: 25 bytes per point, 32 more per valid one,
-    and the node table. Uses only the public lbs_warp_cuda /
-    lbs_warp_torch signatures."""
+    invalid ones passed through bit for bit; timed as knn_row does, but
+    over copies of the input in turn (``l2_cold_inputs``: K2 runs once a
+    frame, after other work has passed through the L2 cache; the time on
+    one input that stays there is ``ms_l2_resident``), with the bound of
+    this input: 25 bytes per point, 32 more per valid one, and the node
+    table. Uses only the public lbs_warp_cuda / lbs_warp_torch
+    signatures."""
+    import itertools
+
     import torch
 
     from occlusionfusion_tpu_torch.ops import lbs
@@ -1210,17 +1274,23 @@ def lbs_row(label, points, anchors, weights, valid, warp):
     assert torch.equal(y_k[~valid], points[~valid]), (
         f"K2 ({label}) changed an invalid point")
     del y_k, y_t
-    ms, ms_lo, ms_hi = graph_ms(lambda: lbs.lbs_warp_cuda(*args), 50)
+    n_valid = int(valid.sum())
+    n_bytes = P * 25 + n_valid * K * 8 + N * 60
+    sets = l2_cold_inputs(args, n_bytes)
+    turn = itertools.cycle(sets)
+    ms, ms_lo, ms_hi = graph_ms(lambda: lbs.lbs_warp_cuda(*next(turn)),
+                                len(sets) * -(-50 // len(sets)))
+    del sets, turn
+    resident = graph_ms(lambda: lbs.lbs_warp_cuda(*args), 50)[0]
     call = cuda_ms(lambda: lbs.lbs_warp_cuda(*args), 50)[0]
     plain = cuda_ms(lambda: lbs.lbs_warp_torch(*args), 5)[0]
-    n_valid = int(valid.sum())
-    b, by = bound_ms(P * 25 + n_valid * K * 8 + N * 60,
-                     n_valid * (K * 24 + 18))
+    b, by = bound_ms(n_bytes, n_valid * (K * 24 + 18))
     return dict(
         name="lbs_warp", route="cuda",
         source="occlusionfusion_tpu_torch/csrc/lbs.cu",
         replaces="occlusionfusion_tpu/ops/lbs.py:89",
-        max_abs_err=err, ms=ms, ms_min=ms_lo, ms_max=ms_hi, call_ms=call,
+        max_abs_err=err, ms=ms, ms_min=ms_lo, ms_max=ms_hi,
+        ms_l2_resident=resident, call_ms=call,
         plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
         input=label, P=P, N=N, valid_points=n_valid,
         valid_share=n_valid / P,
@@ -5112,7 +5182,10 @@ def distributed_rank(rank, world, device, arrays, lstm_state, history,
     on this rank's input (the ranks in turn: they share the card); with
     ``jobs``: the matrix-free GN-CG ("cg"), this rank's blocks of the
     node-sharded and time-ring LSTM ("lstm"), and its x-slab of the main
-    path's volume against the whole volume's integrate ("slab")."""
+    path's volume against the whole volume's integrate ("slab"); phase
+    `sharded`'s rank work: the main path through the sharded engine
+    ("sharded", sharded_main_path_rank) and the dry run's seven phases
+    ("dryrun", parallel/dryrun.dryrun_rank)."""
     import math
 
     import torch
@@ -5196,6 +5269,15 @@ def distributed_rank(rank, world, device, arrays, lstm_state, history,
             torch.equal(getattr(slab, f), shard_rows(mesh, getattr(whole, f)))
             for f in ("tsdf", "weight", "color"))
         out["slab_updated"] = int((slab.weight > 0).sum())
+    if "sharded" in jobs:
+        out["sharded"] = sharded_main_path_rank(mesh, dev, rank, world)
+    if "dryrun" in jobs:
+        from occlusionfusion_tpu_torch.parallel.dryrun import dryrun_rank
+
+        t0 = time.perf_counter()
+        out["dryrun"] = dryrun_rank(rank, world, dev)
+        torch.cuda.synchronize()
+        out["dryrun_s"] = time.perf_counter() - t0
     return out
 
 
@@ -5277,9 +5359,10 @@ def phase_distributed(dev, call):
         lstm_ref = lstm(torch.from_numpy(history).to(dev))[0].cpu().numpy()
     volume = main_path_volume()
     D.kernel_lib()  # built here: the ranks only load it
-    rows = []
+    rows, sharded = [], None
     for world in DIST_WORLDS:
-        jobs = ("cg", "lstm", "slab") if world == 4 else ()
+        jobs = {4: ("cg", "lstm", "slab"),
+                SHARDED_WORLD: ("sharded", "dryrun")}.get(world, ())
         t0 = time.perf_counter()
         outs = launch(distributed_rank, world, dev, arrays, lstm_state,
                       history, volume, jobs, device=dev, backend="gloo",
@@ -5321,6 +5404,466 @@ def phase_distributed(dev, call):
             assert max(lstm_gaps) <= DIST_LSTM_TOL, lstm_gaps
             assert all(o["slab_equal"] for o in outs)
             assert sum(o["slab_updated"] for o in outs) > 0
+        if world == SHARDED_WORLD:
+            sharded = [{k: o[k] for k in ("rank", "sharded", "dryrun",
+                                          "dryrun_s")} for o in outs]
+    return rows, sharded
+
+
+# ---------------------------------------------------------------------------
+# phase `sharded`: the sharded engine, the dry run, the dense routes
+
+
+def sharded_main_path_rank(mesh, dev, rank, world):
+    """One rank of the main path through the sharded engine: initialize +
+    build_fused (K1), the tables and the volume split over the ranks,
+    then N_FRAMES eager sharded steps (K2 on the rank's voxel rows,
+    K3'/K4' on its point shard, one all_reduce of [M | b | sq] per GN
+    iteration), the launch counts set to 0 before and read after; then
+    K3'/K4' (on the rank's point shard, the graph terms rescaled as the
+    distributed solve adds them) and K2 (on its voxel shard) at frame
+    TAP_FRAME against their twins, the ranks in turn."""
+    import math
+
+    import torch
+    import torch.distributed as dist
+
+    from occlusionfusion_tpu_torch import device as D
+    from occlusionfusion_tpu_torch.fusion.pipeline import DynamicFusion
+    from occlusionfusion_tpu_torch.models.checkpoint import (
+        load_motion_complete_net,
+    )
+    from occlusionfusion_tpu_torch.parallel import engine as E
+
+    seq, _ = sphere_sequence(N_FRAMES + 1, IMG_H, IMG_W, RADIUS, STEP_Z,
+                             DISTANCE)
+    net = load_motion_complete_net(device=dev)
+    orig, taps = E._solve_dense_shard, []
+
+    def solve_tap(mesh_, problem, config, axis, R0, t0):
+        taps.append(None)
+        if len(taps) == TAP_FRAME:
+            taps[-1] = (problem, config, R0.clone(), t0.clone())
+        return orig(mesh_, problem, config, axis, R0, t0)
+
+    E._solve_dense_shard = solve_tap
+    try:
+        with KernelInputTap(TAP_FRAME) as ktap:
+            torch.cuda.synchronize()
+            D.reset_launch_counts()
+            t0 = time.perf_counter()
+            fusion = DynamicFusion(seq, sphere_config(), device=dev)
+            fusion.initialize(seq.load(0))
+            sc, state, tables = fusion.build_fused(net)
+            state = E.shard_state(mesh, state)
+            tables = E.shard_tables(mesh, tables)
+            torch.cuda.synchronize()
+            t_init = time.perf_counter() - t0
+            trans, rots, infos, slabs = [], [], [], []
+            t1 = time.perf_counter()
+            for i in range(1, len(seq)):
+                frame = seq.load(i)
+                state, info = E.fused_register_frame_sharded(
+                    mesh, sc, state, tables, net,
+                    torch.from_numpy(frame.depth).to(dev),
+                    torch.from_numpy(frame.color).to(dev), fusion.intr)
+                trans.append(state.translations.clone())
+                rots.append(state.rotations.clone())
+                infos.append(info)
+                if i <= SHARDED_EXACT_FRAMES:
+                    slabs.append(state.tsdf.tsdf.clone())
+            torch.cuda.synchronize()
+            t_frames = time.perf_counter() - t1
+            counts = dict(D.launch_counts)
+    finally:
+        E._solve_dense_shard = orig
+    problem, config, R, t = taps[TAP_FRAME - 1]
+    local = problem._replace(
+        edge_weights=problem.edge_weights / world,
+        motion_confidence=problem.motion_confidence / math.sqrt(world))
+    label = f"sharded_rank_{rank}_of_{world}_frame_{TAP_FRAME}"
+    for r in range(world):
+        if r == rank:
+            rows = gn_kernel_rows(label, *gn_path_inputs(
+                (local, config, R, t)))
+            rows.append(lbs_row(label + "_voxel_shard", *ktap.lbs))
+        dist.barrier()
+    for row in rows:
+        row["launches"] = counts[row["name"]]
+    return dict(translations=torch.stack(trans), rotations=torch.stack(rots),
+                infos=torch.stack(infos), slabs=slabs, counts=counts,
+                nodes=fusion.node_count, points=fusion.model_point_count,
+                init_s=t_init, frames_s=t_frames,
+                frames_per_s=(len(seq) - 1) / t_frames, rows=rows,
+                voxel_rows=int(tables.vox_points.shape[0]),
+                point_rows=int(tables.model_points.shape[0]))
+
+
+def single_rank_main_path(dev, net, lbs_impl="auto", keep_lbs=False):
+    """The main path's eager steps on one rank (sphere_config with
+    ``lbs_impl``; the dense skin allowed DENSE_SKIN_MAX_BYTES): per-frame
+    node transforms and infos, the TSDF after the first
+    SHARDED_EXACT_FRAMES frames; with ``keep_lbs`` the voxel warp's
+    inputs at frame TAP_FRAME (KernelInputTap) and the tables."""
+    import torch
+
+    from occlusionfusion_tpu_torch.fusion.pipeline import DynamicFusion
+
+    seq, centers = sphere_sequence(N_FRAMES + 1, IMG_H, IMG_W, RADIUS,
+                                   STEP_Z, DISTANCE)
+    cfg = sphere_config(lbs_impl=lbs_impl,
+                        dense_skin_max_bytes=DENSE_SKIN_MAX_BYTES)
+    with KernelInputTap(TAP_FRAME) as ktap:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fusion = DynamicFusion(seq, cfg, device=dev)
+        fusion.initialize(seq.load(0))
+        sc, state, tables = fusion.build_fused(net)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        tsdf0 = state.tsdf
+        trans, rots, infos, tsdfs = [], [], [], []
+        t1 = time.perf_counter()
+        for i in range(1, len(seq)):
+            state, info = fusion.register_frame_fused(sc, state, tables,
+                                                      seq.load(i), net)
+            trans.append(state.translations.clone())
+            rots.append(state.rotations.clone())
+            infos.append(info)
+            if i <= SHARDED_EXACT_FRAMES:
+                tsdfs.append(state.tsdf.tsdf.clone())
+        torch.cuda.synchronize()
+        t_frames = time.perf_counter() - t1
+    out = dict(translations=torch.stack(trans), rotations=torch.stack(rots),
+               infos=torch.stack(infos), tsdfs=tsdfs,
+               nodes=fusion.node_count, centers=centers, init_s=t_init,
+               frames_per_s=(len(seq) - 1) / t_frames)
+    if keep_lbs:
+        out.update(lbs=ktap.lbs, tables=tables, sc=sc, tsdf0=tsdf0, seq=seq,
+                   intr=fusion.intr)
+    return out
+
+
+def reintegrated_tsdf(base, t_frames, R_frames, frames):
+    """The single-rank warp and integrate of the first ``frames`` frames
+    from ``base``'s initial volume, through the node transforms of
+    another run (t_frames, R_frames [F, N, ...]): that run's volume had
+    its integrate been the single-rank one. A volume gap to ``base``
+    itself mixes in the solves' rounding: a voxel whose warp moves by
+    1e-7 m across a pixel's rounding edge at the silhouette reads
+    another depth."""
+    import torch
+
+    from occlusionfusion_tpu_torch.fusion import fused_step as FS
+    from occlusionfusion_tpu_torch.fusion import tsdf as T
+    from occlusionfusion_tpu_torch.fusion.warpfield import WarpFieldState
+
+    sc, tables, seq = base["sc"], base["tables"], base["seq"]
+    state = base["tsdf0"]
+    for f in range(frames):
+        warp = WarpFieldState(tables.nodes, tables.node_valid,
+                              R_frames[f].to(tables.nodes.device),
+                              t_frames[f].to(tables.nodes.device))
+        frame = seq.load(f + 1)
+        state = T.integrate(
+            sc.tsdf, state, FS.warp_voxels(sc, tables, warp),
+            tables.vox_valid, torch.from_numpy(frame.depth).to(
+                tables.nodes.device),
+            torch.from_numpy(frame.color).to(tables.nodes.device),
+            base["intr"])
+    return state.tsdf
+
+
+def frame_gap_stats(a_t, a_R, b_t, b_R, n):
+    """Per frame: node_diff_stats of two runs' node transforms [F, N, ...]
+    over their first ``n`` nodes."""
+    from types import SimpleNamespace
+
+    return [node_diff_stats(SimpleNamespace(rotations=a_R[f],
+                                            translations=a_t[f]),
+                            SimpleNamespace(rotations=b_R[f],
+                                            translations=b_t[f]), n)
+            for f in range(a_t.shape[0])]
+
+
+def check_sharded_main_path(outs, runs):
+    """The sharded main path against the two single-rank runs: the ranks
+    equal; frames 1..SHARDED_EXACT_FRAMES within SHARDED_T_TOL of run 1
+    (translations) and within SHARDED_TSDF_TOL of the single-rank
+    integrate through the sharded run's own transforms
+    (``reintegrated_tsdf``), and the voxels more than SHARDED_TSDF_TOL
+    off run 1 at most SHARDED_GAP_FACTOR times as many as run 2's or
+    SHARDED_VOXEL_FLOOR, whichever is larger (F5's rule); every frame's
+    median and 90th-percentile
+    node gap within F5's limits or SHARDED_GAP_FACTOR times the two
+    runs' own gap; tracking within 4 mm; every kernel launched on every
+    rank, K3'/K4' GN_ITERS times a frame."""
+    import numpy as np
+    import torch
+
+    sh = [o["sharded"] for o in outs]
+    a, b = runs
+    n = a["nodes"]
+    assert all(s["nodes"] == n for s in sh), ([s["nodes"] for s in sh], n)
+    # the solve's system is summed by all_reduce, so every rank steps
+    # alike; the replicated motion GNN adds with atomics on each rank, so
+    # its mean confidence (info column 3) agrees to rounding only
+    rank_gaps = [float((s["infos"] - sh[0]["infos"]).abs().max())
+                 for s in sh[1:]]
+    for s in sh[1:]:
+        assert torch.equal(s["translations"], sh[0]["translations"])
+        assert torch.equal(s["infos"][:, [0, 1, 2, 4, 5, 6]],
+                           sh[0]["infos"][:, [0, 1, 2, 4, 5, 6]])
+    t_sh, R_sh = sh[0]["translations"], sh[0]["rotations"]
+    t_a, R_a = a["translations"].cpu(), a["rotations"].cpu()
+    t_b, R_b = b["translations"].cpu(), b["rotations"].cpu()
+    exact = []
+    for f in range(SHARDED_EXACT_FRAMES):
+        tsdf = torch.cat([s["slabs"][f] for s in sh])
+        re = reintegrated_tsdf(a, t_sh, R_sh, f + 1).cpu()
+        gap = (tsdf - a["tsdfs"][f].cpu()).abs()
+        runs_gap = (b["tsdfs"][f] - a["tsdfs"][f]).abs().cpu()
+        exact.append(dict(
+            frame=f + 1,
+            max_dt_m=float((t_sh[f, :n] - t_a[f, :n]).abs().max()),
+            max_dtsdf=float((tsdf - re).abs().max()),
+            max_dtsdf_vs_run=float(gap.max()),
+            voxels_over_1e3_vs_run=int((gap > SHARDED_TSDF_TOL).sum()),
+            runs_max_dtsdf=float(runs_gap.max()),
+            runs_voxels_over_1e3=int((runs_gap > SHARDED_TSDF_TOL).sum()),
+            counts_equal=bool(torch.equal(sh[0]["infos"][f, [1, 2]],
+                                          a["infos"][f, [1, 2]].cpu()))))
+    gaps = frame_gap_stats(t_sh, R_sh, t_a, R_a, n)
+    runs_gap = frame_gap_stats(t_b, R_b, t_a, R_a, n)
+    pk = f"p{STEP_PERCENTILE}_dt_m"
+    limits = [dict(median=max(STEP_MEDIAN_LIMIT,
+                              SHARDED_GAP_FACTOR * r["median_dt_m"]),
+                   p=max(STEP_PERCENTILE_LIMITS["dt_m"],
+                         SHARDED_GAP_FACTOR * r[pk])) for r in runs_gap]
+    motion = a["centers"][-1] - a["centers"][0]
+    med = np.median(t_sh[-1, :n].numpy(), axis=0)
+    emit({"phase": "sharded_main_path", "world": len(sh),
+          "nodes": n, "voxel_rows_per_rank": sh[0]["voxel_rows"],
+          "point_rows_per_rank": sh[0]["point_rows"],
+          "frames_per_s": [s["frames_per_s"] for s in sh],
+          "init_s": [s["init_s"] for s in sh],
+          "single_rank_frames_per_s": [a["frames_per_s"], b["frames_per_s"]],
+          "exact_frames": exact,
+          "median_dt_m": [g["median_dt_m"] for g in gaps],
+          "p90_dt_m": [g[pk] for g in gaps],
+          "runs_median_dt_m": [g["median_dt_m"] for g in runs_gap],
+          "runs_p90_dt_m": [g[pk] for g in runs_gap],
+          "median_node_translation": med.tolist(),
+          "sphere_motion": motion.tolist(),
+          "launches": [s["counts"] for s in sh],
+          "info_gap_between_ranks": rank_gaps,
+          "note": "gloo over the host, both ranks on one card: says "
+                  "nothing of NCCL across cards"})
+    assert max(rank_gaps, default=0.0) <= 1e-5, rank_gaps
+    for e in exact:
+        assert e["max_dt_m"] < SHARDED_T_TOL, e
+        assert e["max_dtsdf"] < SHARDED_TSDF_TOL, e
+        assert e["counts_equal"], e
+        assert e["voxels_over_1e3_vs_run"] <= max(
+            SHARDED_VOXEL_FLOOR,
+            SHARDED_GAP_FACTOR * e["runs_voxels_over_1e3"]), e
+    for f, (g, lim) in enumerate(zip(gaps, limits), start=1):
+        assert g["median_dt_m"] <= lim["median"], (f, g, lim)
+        assert g[pk] <= lim["p"], (f, g, lim)
+    assert np.all(np.abs(med - motion) <= 4e-3), (med, motion)
+    infos = sh[0]["infos"].numpy()
+    assert np.isfinite(infos).all() and (infos[:, 4] > 0.5).all()
+    for s in sh:
+        for k in PATH_KERNELS:
+            assert s["counts"][k] > 0, f"kernel {k} not launched: {s}"
+        for k in ("point_term_blocks", "arap_term_blocks"):
+            assert s["counts"][k] == GN_ITERS * N_FRAMES, s["counts"]
+
+
+def dense_skin_f64(points, valid, skin, warp, rows=1 << 18):
+    """JAX's dense-skin warp computed exactly (f64) from the same bf16
+    halves: s_hi [T_hi + T_lo] + s_lo T_hi, then the blend; row blocks
+    of ``rows``."""
+    import torch
+
+    from occlusionfusion_tpu_torch.ops.lbs import pack_transforms
+
+    T = pack_transforms(warp)
+    T = torch.nn.functional.pad(T, (0, 0, 0, skin.s_hi.shape[1] - T.shape[0]))
+    T_hi = T.to(torch.bfloat16)
+    T_lo = (T - T_hi.float()).to(torch.bfloat16)
+    hi_lo = T_hi.double() + T_lo.double()
+    out = []
+    for r0 in range(0, points.shape[0], rows):
+        m = (skin.s_hi[r0:r0 + rows].double() @ hi_lo
+             + skin.s_lo[r0:r0 + rows].double() @ T_hi.double())
+        x = points[r0:r0 + rows].double()
+        y = torch.stack([(m[:, 3 * i:3 * i + 3] * x).sum(1) + m[:, 9 + i]
+                         for i in range(3)], 1)
+        out.append(torch.where(valid[r0:r0 + rows, None], y.float(),
+                               points[r0:r0 + rows]))
+    return torch.cat(out)
+
+
+def dense_skin_error_bound(points, anchors, weights, valid, warp):
+    """Per voxel and axis, the worst case of the dense-skin route's bf16
+    split against the exact warp, plus K2's f32 rounding: S and T each
+    kept to 2^-16 of an entry by their hi/lo halves and the dropped
+    s_lo T_lo at most 2^-16 of |S||T|, so each blended entry is off by at
+    most 3 2^-16 sum_k w_k |T_k|, times |x| through the blend."""
+    import torch
+
+    from occlusionfusion_tpu_torch.ops.lbs import pack_transforms
+
+    absT = pack_transforms(warp).abs()
+    A = sum(weights[:, k, None] * absT[anchors[:, k].long()]
+            for k in range(anchors.shape[1]))  # [P, 12]
+    x = points.abs()
+    per_axis = torch.stack([(A[:, 3 * i:3 * i + 3] * x).sum(1) + A[:, 9 + i]
+                            for i in range(3)], 1)
+    return torch.where(valid[:, None], 3 * 2.0**-16 * per_axis
+                       + DENSE_SKIN_F32_REL * x.amax(1, keepdim=True),
+                       torch.zeros_like(per_axis))
+
+
+def dense_skin_case(dev, net, base):
+    """The main path with lbs_impl "dense": its skin (4.29 GB at the
+    main path's 2,097,152 voxels and 512 nodes) built in build_fused, and
+    built again timed; on the K2 run ``base``'s frame-8 warp, the dense
+    warp against the route's own arithmetic in f64 (DENSE_SKIN_F32_REL)
+    and against K2 within the route's worst case (F18: at 3 m it reads
+    above the "~1e-5" of JAX's docstring, printed), both timed; its 16
+    frames tracked
+    within 4 mm, node transforms against ``base``'s by F5's median
+    limit (the warp feeds only the volume)."""
+    import numpy as np
+    import torch
+
+    from occlusionfusion_tpu_torch.ops import lbs as L
+    from occlusionfusion_tpu_torch.ops.lbs import DenseSkin, dense_skin_bytes
+
+    run = single_rank_main_path(dev, net, lbs_impl="dense", keep_lbs=True)
+    tables = run["tables"]
+    assert run["sc"].lbs_impl == "dense" and run["lbs"] is None, (
+        "the dense route launched K2")
+    assert tables.vox_dense_hi is not None, "the dense skin was not built"
+    points, anchors, weights, valid, warp = base["lbs"]
+    assert torch.equal(anchors, tables.vox_anchors) and torch.equal(
+        weights, tables.vox_weights), "the two runs' skins differ"
+    skin = DenseSkin(tables.vox_dense_hi, tables.vox_dense_lo)
+    N = warp.node_positions.shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    L.precompute_dense_skin(anchors, weights, valid, N)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    dense = L.lbs_warp_dense(points, valid, skin, warp)
+    k2 = L.lbs_warp(points, anchors, weights, valid, warp)
+    scale = float(k2.abs().max())
+    err_k2 = float((dense - k2).abs().max()) / scale
+    err_emul = float((dense - dense_skin_f64(points, valid, skin, warp))
+                     .abs().max()) / scale
+    bound = dense_skin_error_bound(points, anchors, weights, valid, warp)
+    within = bool(((dense - k2).abs() <= bound).all())
+    bound_rel = float(bound.max()) / scale
+    del dense, k2, bound
+    ms = graph_ms(lambda: L.lbs_warp_dense(points, valid, skin, warp), 5)
+    k2_ms = graph_ms(lambda: L.lbs_warp(points, anchors, weights, valid,
+                                        warp), 50)
+    P = points.shape[0]
+    n_bytes = dense_skin_bytes(P, N) + P * 13 + P * 12 + N * 48
+    n = base["nodes"]
+    gaps = frame_gap_stats(run["translations"].cpu(), run["rotations"].cpu(),
+                           base["translations"].cpu(),
+                           base["rotations"].cpu(), n)
+    motion = base["centers"][-1] - base["centers"][0]
+    med = np.median(run["translations"][-1, :n].cpu().numpy(), axis=0)
+    emit({"phase": "sharded_dense_skin", "voxels": P, "nodes": N,
+          "skin_bytes": dense_skin_bytes(P, N), "skin_build_s": build_s,
+          "warp_ms": ms[0], "warp_ms_min_max": ms[1:],
+          "k2_ms": k2_ms[0], "bound_ms": bound_ms(n_bytes, 0)[0],
+          "max_rel_err_vs_k2": err_k2, "max_rel_err_vs_f64_route": err_emul,
+          "worst_case_bound_rel": bound_rel, "within_bound": within,
+          "jax_docstring_rel": DENSE_SKIN_REL,
+          "meets_jax_docstring": err_k2 <= DENSE_SKIN_REL,
+          "frames_per_s": run["frames_per_s"],
+          "median_dt_m_vs_k2_run": [g["median_dt_m"] for g in gaps],
+          "median_node_translation": med.tolist(),
+          "nvidia_smi": nvidia_smi_line()})
+    # the port computes JAX's route: the same bf16 halves' products and
+    # blend in f64 within f32 rounding; against K2 the route's own bf16
+    # error, within its worst case (F18: above JAX's "~1e-5" at 3 m)
+    assert err_emul <= DENSE_SKIN_F32_REL, err_emul
+    assert within, (err_k2, bound_rel)
+    assert np.all(np.abs(med - motion) <= 4e-3), (med, motion)
+    for f, g in enumerate(gaps, start=1):
+        assert g["median_dt_m"] <= STEP_MEDIAN_LIMIT, (f, g)
+
+
+def dense_j_case(call):
+    """GNConfig(assembly="dense_j") on the main path's frame-8 input: its
+    system (M, b, sq) against the block route's (K3' + K4') within
+    DENSE_J_REL of the largest entry, its solve against the default
+    route's within DENSE_J_TOL, and the dense_j assembly (J
+    [3P + 3NE + 3N, 6N] and J^T J) timed."""
+    import torch
+
+    from occlusionfusion_tpu_torch.solvers import gauss_newton_dense as GND
+
+    problem, config, R, t = call
+    cfg = config._replace(assembly="dense_j")
+    system = GND._assemble(problem, cfg, R, t)
+    blocks_system = GND._assemble_blocks(problem, config, R, t)
+    rel = [float((x - y).abs().max()) / float(y.abs().max())
+           for x, y in zip(system, blocks_system)]
+    del system, blocks_system
+    ref = GND.solve_dense(problem, config, R, t)
+    got = GND.solve_dense(problem, cfg, R, t)
+    torch.cuda.synchronize()
+    gap = float((got.translations - ref.translations).abs().max())
+    ms = cuda_ms(lambda: GND._assemble(problem, cfg, R, t), 3)
+    blocks = graph_ms(lambda: GND._assemble_blocks(problem, config, R, t), 20)
+    n, P = problem.nodes.shape[0], problem.source_points.shape[0]
+    rows = 3 * P + 3 * n * problem.edges.shape[1] + 3 * n
+    flops = 2.0 * rows * (6 * n) ** 2
+    emit({"phase": "sharded_dense_j", "input": f"main_path_frame_{TAP_FRAME}",
+          "max_dt_m": gap, "valid": bool(got.valid), "jacobian_rows": rows,
+          "rel_err_M_b_sq_vs_blocks": rel,
+          "assembly_ms": ms[0], "assembly_ms_min_max": ms[1:],
+          "blocks_assembly_ms": blocks[0], "jtj_flop": flops,
+          "bound_ms": bound_ms(4.0 * rows * 6 * n, flops)[0],
+          "nvidia_smi": nvidia_smi_line()})
+    assert bool(got.valid) and gap <= DENSE_J_TOL, gap
+    assert max(rel) <= DENSE_J_REL, rel
+
+
+def phase_sharded(dev, call, outs):
+    """Phase `sharded`: the sharded main path and the dry run (the 2
+    ranks of phase `distributed` ran them) held to two single-rank runs
+    and to the dry run's asserts; the dense skin and dense_j routes on
+    the main path. Returns the ranks' kernel rows."""
+    import torch
+
+    from occlusionfusion_tpu_torch.models.checkpoint import (
+        load_motion_complete_net,
+    )
+    from occlusionfusion_tpu_torch.parallel.dryrun import dryrun_checks
+
+    t0 = time.perf_counter()
+    net = load_motion_complete_net(device=dev)
+    runs = [single_rank_main_path(dev, net, keep_lbs=i == 0)
+            for i in range(2)]
+    check_sharded_main_path(outs, runs)
+    summary = dryrun_checks([o["dryrun"] for o in outs], len(outs))
+    emit({"phase": "sharded_dryrun", "summary": summary,
+          "dryrun_s": [o["dryrun_s"] for o in outs]})
+    dense_skin_case(dev, net, runs[0])
+    torch.cuda.empty_cache()
+    dense_j_case(call)
+    rows = [row for o in outs for row in o["sharded"]["rows"]]
+    emit({"phase": "sharded", "parent_s": time.perf_counter() - t0,
+          "rank_s": [o["sharded"]["init_s"] + o["sharded"]["frames_s"]
+                     + o["dryrun_s"] for o in outs]})
     return rows
 
 
@@ -5784,21 +6327,24 @@ def eval_check_dt4d(name, runs, ref_npz):
     EVAL_CORRESPONDENCE_TOL on the counts) is stable and holds the port's
     unscaled run within that limit of JAX's; at the other frames every
     port run lies within JAX's range widened by the larger of the two
-    ranges. ate_m likewise. Frame 1 must be stable."""
+    ranges. ate_m likewise, stable only where every frame is: it
+    aggregates every frame's tracked nodes, so the chaos of frames 8-11
+    (F17) moves it from one card run to the next while the ranges of one
+    run's ensembles stay under the limit. Frame 1 must be stable."""
     import numpy as np
 
-    def held(port, jax, rel):
+    def held(port, jax, rel, frames_stable=True):
         scale = np.maximum(np.abs(jax[0]), 1) if rel else 1.0
         limit = EVAL_CORRESPONDENCE_TOL if rel else EVAL_DT4D_TOL
         r_j = (jax.max(0) - jax.min(0)) / scale
         r_p = (port.max(0) - port.min(0)) / scale
-        stable = (r_j <= limit) & (r_p <= limit)
+        stable = (r_j <= limit) & (r_p <= limit) & frames_stable
         gap = np.abs(port[0] - jax[0]) / scale
         w = np.maximum(r_j, r_p) * scale
         inside = ((port >= jax.min(0) - w) & (port <= jax.max(0) + w)).all(0)
         ok = np.where(stable, gap <= limit, inside)
         return (np.atleast_1d(stable), np.atleast_1d(ok),
-                float(np.max(gap)), float(np.max(r_j)))
+                float(np.max(gap)), float(np.max(r_j)), float(np.max(r_p)))
 
     epe_j = np.concatenate([ref_npz[f"dt4d_{name}_epe"][None],
                             ref_npz[f"dt4d_{name}_ensemble_epe"]])
@@ -5812,12 +6358,15 @@ def eval_check_dt4d(name, runs, ref_npz):
     ate = np.asarray([r["ate_m"] for r in runs])
     assert epe.shape[1:] == epe_j.shape[1:] and corr.shape[1:] == (
         corr_j.shape[1:])
-    s_e, ok_e, gap_e, r_e = held(epe, epe_j, False)
-    s_c, ok_c, gap_c, r_c = held(corr, corr_j, True)
-    s_a, ok_a, gap_a, r_a = held(ate, ate_j, False)
+    s_e, ok_e, gap_e, r_e, p_e = held(epe, epe_j, False)
+    s_c, ok_c, gap_c, r_c, p_c = held(corr, corr_j, True)
+    s_a, ok_a, gap_a, r_a, p_a = held(ate, ate_j, False,
+                                      bool((s_e & s_c).all()))
     out = dict(max_epe_gap_m=gap_e, max_correspondence_gap=gap_c,
                ate_gap_m=gap_a, jax_epe_range_m=r_e,
                jax_correspondence_range=r_c, jax_ate_range_m=r_a,
+               port_epe_range_m=p_e, port_correspondence_range=p_c,
+               port_ate_range_m=p_a,
                unstable_frames=[int(i) + 1 for i in
                                 np.flatnonzero(~(s_e & s_c))],
                ate_stable=bool(s_a[0]), port_runs=len(runs),
@@ -6116,8 +6665,17 @@ def main(argv) -> int:
     emit({"phase": "training_done", "s": time.perf_counter() - t})
 
     t = time.perf_counter()
-    rows += phase_distributed(dev, solver_call)
+    dist_rows, sharded_outs = phase_distributed(dev, solver_call)
+    rows += dist_rows
     emit({"phase": "distributed_done", "s": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    sharded_rows = phase_sharded(dev, solver_call, sharded_outs)
+    for row in sharded_rows:
+        emit({"phase": "kernel", **row})
+    rows += sharded_rows
+    del sharded_outs
+    emit({"phase": "sharded_done", "s": time.perf_counter() - t})
 
     t = time.perf_counter()
     phase_gn_solvers(dev, solver_call)

@@ -1,10 +1,16 @@
 """Projective data association, per-node motion observations and the
 freezing of match-starved graph components (port of
-``occlusionfusion_tpu/fusion/correspondence.py``)."""
+``occlusionfusion_tpu/fusion/correspondence.py``).
+
+The per-node reductions take an optional process ``group``: with the
+points sharded over its ranks (the sharded engine), each rank's per-node
+sums are summed over the group before they are used, as GSPMD sums them
+in the JAX package. Without one nothing crosses a process."""
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from occlusionfusion_tpu_torch.geometry.camera import Intrinsics
 
@@ -75,9 +81,11 @@ def node_motion_observations(
     point_weights,  # [P, K]
     deformed_nodes,  # [N, 3]
     node_visible,  # [N]
+    group=None,
 ):
     """(node_motion [N, 3], observed [N]): skinning-weighted mean
-    displacement of the valid correspondences anchored to each node."""
+    displacement of the valid correspondences anchored to each node (of
+    every rank's points where ``group``: one all_reduce of the sums)."""
     n = deformed_nodes.shape[0]
     K = point_anchors.shape[1]
     disp = targets - deformed_points
@@ -89,6 +97,10 @@ def node_motion_observations(
     num.index_add_(0, flat_anchor, flat_disp * flat_w[:, None])
     den = torch.zeros((n,), dtype=disp.dtype, device=disp.device)
     den.index_add_(0, flat_anchor, flat_w)
+    if group is not None:
+        sums = torch.cat([num, den[:, None]], dim=1)
+        dist.all_reduce(sums, group=group)
+        num, den = sums[:, :3], sums[:, 3]
     observed = (den > 1e-6) & node_visible
     motion = torch.where(
         observed[:, None],
@@ -105,17 +117,21 @@ def cluster_match_filter(
     node_clusters,  # [N] component id per node (-1 padded)
     node_valid,  # [N]
     min_cluster_weight: float,
+    group=None,
 ):
     """Freeze match-starved graph components: each match's skinning
     weights summed onto its anchor nodes, reduced per connected
     component; every node of a component below ``min_cluster_weight`` is
     frozen, and the matches anchored to any frozen node are dropped.
-    Returns (node_solve_mask [N] bool, corr_weight' [P])."""
+    Where ``group``, the per-node weights are summed over its ranks'
+    points first. Returns (node_solve_mask [N] bool, corr_weight' [P])."""
     n = node_clusters.shape[0]
     w = point_weights * corr_weight[:, None]
     anchors = torch.clamp(point_anchors, min=0).long()
     match_w_node = torch.zeros((n,), dtype=w.dtype, device=w.device)
     match_w_node.index_add_(0, anchors.reshape(-1), w.reshape(-1))
+    if group is not None:
+        dist.all_reduce(match_w_node, group=group)
     match_w_node = match_w_node * node_valid.to(w.dtype)
     cid = torch.clamp(node_clusters, 0, n - 1).long()
     cluster_w = torch.zeros((n,), dtype=w.dtype, device=w.device)

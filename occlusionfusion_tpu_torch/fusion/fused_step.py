@@ -28,9 +28,16 @@ target depth, in the frames the host's cadence gate picks
 (``lepard_every``: the step takes ``run_lepard``, and a chunk graph holds
 the matcher in exactly the steps whose absolute frame index runs it),
 and the freezing of match-starved graph components
-(``min_cluster_matches``, with the tables' ``node_clusters``).
-``FusionConfig`` (``fusion/pipeline.py``) rejects the settings of the
-branches not ported.
+(``min_cluster_matches``, with the tables' ``node_clusters``). The voxel
+warp takes K2 (``lbs_impl`` "pallas", "xla", or "auto" without a dense
+skin in the tables) or the dense-skin products (``lbs_impl`` "dense", or
+"auto" with the tables' ``vox_dense_hi``/``vox_dense_lo``).
+
+``fused_register_frame(shard=)`` is also one rank's step of the sharded
+engine (``parallel/engine.py``): its point and voxel rows are this rank's
+shard, and ``shard`` says where the work crosses ranks (the motion
+observations' and the cluster filter's per-node sums, the matcher's and
+N-ICP's whole point cloud, the distributed dense solve, the info counts).
 """
 
 from __future__ import annotations
@@ -69,7 +76,11 @@ from occlusionfusion_tpu_torch.geometry.camera import (
     bilinear_sample,
 )
 from occlusionfusion_tpu_torch.models.lepard import scene_flow
-from occlusionfusion_tpu_torch.ops.lbs import lbs_warp
+from occlusionfusion_tpu_torch.ops.lbs import (
+    DenseSkin,
+    lbs_warp,
+    lbs_warp_dense,
+)
 from occlusionfusion_tpu_torch.solvers.gauss_newton import GNConfig, GNProblem
 from occlusionfusion_tpu_torch.solvers.gauss_newton_dense import solve_dense
 from occlusionfusion_tpu_torch.solvers.nicp import NICPConfig, NICPProblem
@@ -100,6 +111,13 @@ class FusionTables(NamedTuple):
     # N-ICP's chamfer subsamples [iters + 1, 2, S] (nicp.solve); None
     # unless nicp.w_chamfer
     chamfer_table: torch.Tensor = None
+    # the voxels' dense skinning matrix as bf16 halves (ops/lbs.py
+    # DenseSkin) [V, N_pad] each; None unless build_fused made one
+    vox_dense_hi: torch.Tensor = None
+    vox_dense_lo: torch.Tensor = None
+    # the dense solve's compact-pair scatter plan (gauss_newton_dense
+    # PairScatterPlan); None, as the JAX build_fused leaves it
+    gn_scatter_plan: tuple = None
 
 
 class FusionStepState(NamedTuple):
@@ -162,6 +180,11 @@ class FusedStepConfig(NamedTuple):
     # this (0 = off; tables.node_clusters required): their nodes leave
     # the dense solve and their matches drop out of either solve
     min_cluster_matches: float = 0.0
+    # the voxel warp: "dense" (the tables' dense skin, required),
+    # "pallas" or "xla" (K2 on CUDA tensors, its twin on CPU tensors:
+    # both compute the JAX routes' warp), "auto" (dense where the tables
+    # carry a skin, else K2)
+    lbs_impl: str = "auto"
 
 
 def _rgbxyz_image(depth, color, intr: Intrinsics):
@@ -290,6 +313,30 @@ def _flow_correspondences(config: FusedStepConfig, prev_rgbxyz, cur_rgbxyz,
     return targets, corr_valid | ok, corr_weight, ok
 
 
+LBS_IMPLS = ("auto", "dense", "pallas", "xla")
+
+
+def warp_voxels(config: FusedStepConfig, tables: FusionTables,
+                warp: W.WarpFieldState):
+    """The voxel warp by ``config.lbs_impl``: the dense-skin products, or
+    K2 on CUDA tensors and its twin on CPU tensors."""
+    if config.lbs_impl not in LBS_IMPLS:
+        raise ValueError(f"lbs_impl must be one of {LBS_IMPLS}, got "
+                         f"{config.lbs_impl!r}")
+    have_dense = tables.vox_dense_hi is not None
+    if config.lbs_impl == "dense" and not have_dense:
+        raise ValueError("lbs_impl='dense' needs the tables' dense skin "
+                         "(vox_dense_hi/vox_dense_lo; FusionConfig."
+                         "dense_skin_max_bytes too small?)")
+    if config.lbs_impl == "dense" or (config.lbs_impl == "auto"
+                                      and have_dense):
+        return lbs_warp_dense(
+            tables.vox_points, tables.vox_valid,
+            DenseSkin(tables.vox_dense_hi, tables.vox_dense_lo), warp)
+    return lbs_warp(tables.vox_points, tables.vox_anchors,
+                    tables.vox_weights, tables.vox_valid, warp)
+
+
 @torch.no_grad()
 def fused_register_frame(
     config: FusedStepConfig,
@@ -305,6 +352,7 @@ def fused_register_frame(
     corr_depth: torch.Tensor | None = None,  # [H, W]
     run_lepard: bool = True,
     init=None,
+    shard=None,
 ):
     """One frame. Returns (state, info [7] f32: final_loss,
     n_correspondences, n_visible_nodes, mean_conf, solve_valid,
@@ -319,7 +367,11 @@ def fused_register_frame(
     boundary pixels zeroed); everything else reads ``depth``. ``init``,
     where given, is the (rotations, translations) the solve starts from
     instead of the state's (the stepwise loop's first frame after a
-    growth, as the JAX stepwise loop warm-starts it)."""
+    growth, as the JAX stepwise loop warm-starts it). ``shard``, where
+    given, makes this one rank's step of the sharded engine
+    (``parallel.engine.RankShard``: the tables' and the volume's rows are
+    this rank's; the info counts are summed over the ranks)."""
+    group = None if shard is None else shard.group
     warp = W.WarpFieldState(
         node_positions=tables.nodes,
         node_valid=tables.node_valid,
@@ -364,10 +416,14 @@ def fused_register_frame(
             depth, intr, config.lepard_max_target_points,
             config.lepard_subsample,
         )
-        lflow, lmask, _ = scene_flow(
-            lepard_net, deformed_pts, tables.model_valid & tables.point_valid,
-            tgt_pcd, tgt_valid,
-        )
+        src, src_valid = deformed_pts, tables.model_valid & tables.point_valid
+        if shard is not None:
+            # the matcher sees the whole cloud; each rank keeps its rows
+            src, src_valid = shard.gather(src, src_valid)
+        lflow, lmask, _ = scene_flow(lepard_net, src, src_valid, tgt_pcd,
+                                     tgt_valid)
+        if shard is not None:
+            lflow, lmask = shard.rows(lflow), shard.rows(lmask)
         targets = torch.where(lmask[:, None], deformed_pts + lflow, targets)
         corr_valid = corr_valid | lmask
         corr_weight = torch.maximum(corr_weight, lmask.to(torch.float32))
@@ -379,14 +435,14 @@ def fused_register_frame(
         solve_mask, corr_weight = cluster_match_filter(
             tables.point_anchors, tables.point_weights, corr_weight,
             tables.node_clusters, tables.node_valid,
-            config.min_cluster_matches,
+            config.min_cluster_matches, group=group,
         )
         corr_valid = corr_valid & (corr_weight > 0)
 
     # 3. per-node motion observations
     node_motion, node_observed = node_motion_observations(
         deformed_pts, targets, corr_valid, tables.point_anchors,
-        tables.point_weights, deformed_nodes, node_visible,
+        tables.point_weights, deformed_nodes, node_visible, group=group,
     )
 
     # 4. motion completion
@@ -408,13 +464,21 @@ def fused_register_frame(
     init_R, init_t = ((state.rotations, state.translations) if init is None
                       else init)
     if config.solver == "nicp":
-        idx = torch.arange(tables.model_points.shape[0],
-                           device=tables.model_points.device)
+        pts, anchors, weights, pvalid = (
+            tables.model_points, tables.point_anchors, tables.point_weights,
+            tables.model_valid & tables.point_valid)
+        if shard is not None:
+            # N-ICP runs replicated on the whole cloud: the single-rank
+            # solve, every sum in its order
+            pts, anchors, weights, pvalid, targets, corr_weight = \
+                shard.gather(pts, anchors, weights, pvalid, targets,
+                             corr_weight)
+        idx = torch.arange(pts.shape[0], device=pts.device)
         result = nicp_solve(NICPProblem(
-            source_points=tables.model_points,
-            point_anchors=tables.point_anchors,
-            point_weights=tables.point_weights,
-            point_valid=tables.model_valid & tables.point_valid,
+            source_points=pts,
+            point_anchors=anchors,
+            point_weights=weights,
+            point_valid=pvalid,
             nodes=tables.nodes,
             node_valid=tables.node_valid,
             edges=tables.edges,
@@ -430,7 +494,7 @@ def fused_register_frame(
         final_loss = result.final_loss
         solve_valid = torch.isfinite(final_loss)
     else:
-        result = solve_dense(GNProblem(
+        problem = GNProblem(
             source_points=tables.model_points,
             point_anchors=tables.point_anchors,
             point_weights=tables.point_weights,
@@ -444,7 +508,13 @@ def fused_register_frame(
             motion_confidence=motion_conf,
             solve_node_mask=solve_mask,
             intrinsics=(intr.fx, intr.fy, intr.cx, intr.cy),
-        ), config.gn, init_rotations=init_R, init_translations=init_t)
+        )
+        if shard is not None:
+            result = shard.solve_dense(problem, config.gn, init_R, init_t)
+        else:
+            result = solve_dense(problem, config.gn, init_rotations=init_R,
+                                 init_translations=init_t,
+                                 scatter_plan=tables.gn_scatter_plan)
         final_loss = result.residual_history[-1]
         solve_valid = result.valid
 
@@ -452,27 +522,26 @@ def fused_register_frame(
     new_warp = warp._replace(
         rotations=result.rotations, translations=result.translations
     )
-    # kernel K2 on CUDA tensors, its twin on CPU tensors (the JAX
-    # lbs_impl="auto" choice, made here from the device)
-    warped_vox = lbs_warp(
-        tables.vox_points, tables.vox_anchors, tables.vox_weights,
-        tables.vox_valid, new_warp,
-    )
+    warped_vox = warp_voxels(config, tables, new_warp)
     new_tsdf = T.integrate(
         config.tsdf, state.tsdf, warped_vox, tables.vox_valid, depth, color,
         intr,
     )
 
+    counts = torch.stack([torch.sum(x).to(torch.float32)
+                          for x in (corr_valid, flow_ok, lmask)])
+    if shard is not None:
+        shard.sum(counts)
     info = torch.stack([
         final_loss,
-        torch.sum(corr_valid).to(torch.float32),
+        counts[0],
         torch.sum(node_visible).to(torch.float32),
         torch.sum(motion_conf) / torch.clamp(
             torch.sum(tables.node_valid), min=1
         ).to(torch.float32),
         solve_valid.to(torch.float32),
-        torch.sum(flow_ok).to(torch.float32),
-        torch.sum(lmask).to(torch.float32),
+        counts[1],
+        counts[2],
     ])
     new_state = FusionStepState(
         tsdf=new_tsdf,

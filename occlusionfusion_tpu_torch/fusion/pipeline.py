@@ -35,9 +35,13 @@ package runs: N-ICP with its chamfer cost (the subsample table
 ``nicp.default_chamfer_table``, or the caller's ``chamfer_table``), and
 ``"gn_dense"`` with each linear solver and either data term. N-ICP's
 rendered costs do nothing on these paths, as in the JAX package, whose
-problems carry no target depth (ROADMAP F14). ``lbs_impl`` and
-``dense_skin_max_bytes`` choose a TPU-only dense skinning matmul and have
-no counterpart here.
+problems carry no target depth (ROADMAP F14). ``lbs_impl`` chooses the
+fused engine's voxel warp as in JAX: ``"dense"`` precomputes the voxels'
+dense skinning matrix (``ops/lbs.DenseSkin``) in ``build_fused`` where it
+fits ``dense_skin_max_bytes`` and warps by two matrix products a frame,
+on either device (JAX's ``"auto"`` builds it on a TPU only, so the
+port's ``"auto"`` never does); every other value warps by K2 on the card
+and its twin on the CPU.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from occlusionfusion_tpu_torch.fusion.fused_step import (
     _deterministic_target_subsample,
     _rgbxyz_image,
     fused_register_chunk,
+    LBS_IMPLS,
     fused_register_frame,
     lepard_gate,
 )
@@ -87,10 +92,17 @@ from occlusionfusion_tpu_torch.graph.edgraph import (
     build_pyramid_from_nodes,
 )
 from occlusionfusion_tpu_torch.models.lepard import scene_flow
+from occlusionfusion_tpu_torch.ops.lbs import (
+    dense_skin_bytes,
+    precompute_dense_skin,
+)
 from occlusionfusion_tpu_torch.solvers.gauss_newton import (
     DATA_TERMS,
     LINEAR_SOLVERS,
     GNConfig,
+)
+from occlusionfusion_tpu_torch.solvers.gauss_newton_dense import (
+    check_assembly,
 )
 from occlusionfusion_tpu_torch.solvers.nicp import (
     NICPConfig,
@@ -120,6 +132,11 @@ class FusionConfig:
     # warp solver: "nicp" (Adam, the nicp config) or "gn_dense" (the gn
     # config)
     solver: str = "nicp"
+    # the fused engine's voxel warp (FusedStepConfig.lbs_impl): "dense"
+    # builds the dense skin in build_fused where dense_skin_bytes(voxels,
+    # max_nodes) <= dense_skin_max_bytes; "auto", "pallas", "xla": K2
+    lbs_impl: str = "auto"
+    dense_skin_max_bytes: int = 1 << 30
     # 0 = dense grid; > 0 = brick edge in voxels; -1 (the JAX default) =
     # auto: bricks of 8 at >= 128^3 virtual voxels, dense below. Bricks
     # near the first frame's surface (bricks.active_bricks_from_depth)
@@ -217,6 +234,10 @@ class FusionConfig:
             raise ValueError(f"gn.linear_solver must be one of "
                              f"{LINEAR_SOLVERS}, got "
                              f"{self.gn.linear_solver!r}")
+        check_assembly(self.gn)
+        if self.lbs_impl not in LBS_IMPLS:
+            raise ValueError(f"lbs_impl must be one of {LBS_IMPLS}, got "
+                             f"{self.lbs_impl!r}")
         if self.gn.data_term not in DATA_TERMS:
             raise ValueError(f"gn.data_term must be one of {DATA_TERMS}, "
                              f"got {self.gn.data_term!r}")
@@ -431,10 +452,13 @@ class DynamicFusion:
         return default_chamfer_table(cfg.nicp, P, P, self.device)
 
     # ------------------------------------------------------------------
-    def build_fused(self, motion_net=None):
+    def build_fused(self, motion_net=None, dense_skin: bool = True):
         """Device-resident tables + state for the fused path. Call after
-        ``initialize`` (or ``load_state``). Returns (step_config, state,
-        tables)."""
+        ``initialize`` (or ``load_state``). With ``lbs_impl="dense"`` (and
+        ``dense_skin``) the tables carry the voxels' dense skin where it
+        fits ``dense_skin_max_bytes``; the compact-pair scatter plan stays
+        None, as JAX's build_fused leaves it. Returns (step_config,
+        state, tables)."""
         cfg = self.config
         cap = cfg.max_nodes
         motion_levels = level_sizes_for(cap)
@@ -472,6 +496,13 @@ class DynamicFusion:
                            else None),
             chamfer_table=self._chamfer_table(),
         )
+        if dense_skin and cfg.lbs_impl == "dense" and dense_skin_bytes(
+                self.vox_points.shape[0], cap) <= cfg.dense_skin_max_bytes:
+            skin = precompute_dense_skin(
+                self.vox_table.anchors, self.vox_table.weights,
+                self.vox_table.valid, cap)
+            tables = tables._replace(vox_dense_hi=skin.s_hi,
+                                     vox_dense_lo=skin.s_lo)
         # the flow source: the previous frame's RGB-XYZ image (none after
         # load_state, where the stepwise loop's first frame runs no flow)
         prev_rgbxyz = None
@@ -512,6 +543,7 @@ class DynamicFusion:
             solver=cfg.solver,
             nicp=cfg.nicp,
             min_cluster_matches=cfg.min_cluster_matches,
+            lbs_impl=cfg.lbs_impl,
         )
         return step_config, state, tables
 
@@ -535,9 +567,11 @@ class DynamicFusion:
     def _stepwise_tables(self, motion_net):
         """(step config, state, tables) of the stepwise loop from the
         object's fields: the JAX stepwise loop's flow, the dense lift in
-        f32."""
-        sc, state, tables = self.build_fused(motion_net)
-        sc = sc._replace(flow_lift="dense", flow_bf16=False, mask_downscale=1)
+        f32, and the gather warp of the voxels (K2), as the JAX stepwise
+        loop warps them whatever ``lbs_impl`` says."""
+        sc, state, tables = self.build_fused(motion_net, dense_skin=False)
+        sc = sc._replace(flow_lift="dense", flow_bf16=False, mask_downscale=1,
+                         lbs_impl="xla")
         return sc, state, tables
 
     def register_frame(self, frame: Frame, motion_net=None):

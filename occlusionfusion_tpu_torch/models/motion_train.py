@@ -5,6 +5,12 @@ Heteroscedastic Gaussian NLL over node motion: the net predicts (mu [3],
 sigma [1]); loss = |mu - gt|^2 / (2 sigma^2) + 3 log sigma over the real
 nodes. The JAX package vmaps over the batch; the port loops over the
 samples and reduces the same way, the mean of the per-sample losses.
+
+``make_data_parallel_train_step`` is the data-parallel step of
+``__graft_entry__.py``'s dry run, where the JAX batch is sharded over
+``data`` and XLA inserts the gradient psum: each rank's loss over its own
+samples, the gradients (and the loss) averaged by one ``all_reduce`` of
+one flat buffer, and the optimiser stepped on every rank alike.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from occlusionfusion_tpu_torch.fusion.motion_runner import pyramid_to_torch
 from occlusionfusion_tpu_torch.models.motion_complete import (
@@ -74,5 +81,48 @@ def make_train_step(net, optimizer):
         loss.backward()
         optimizer.step()
         return loss.detach()
+
+    return train_step
+
+
+def make_data_parallel_train_step(net, optimizer, mesh_or_group,
+                                  axis: str = "data"):
+    """``step(samples) -> loss``: one data-parallel optimiser step over a
+    process group (or a mesh's ``axis``). Each rank passes its own
+    samples; the mean loss and its gradients over each rank's samples
+    are averaged over the ranks by one all_reduce of one flat buffer
+    [gradients | loss | count | count^2], and every rank steps the same
+    replicated parameters. That is the step on the whole batch when
+    every rank holds equally many samples; where they do not, every rank
+    raises ``ValueError``."""
+    group = (mesh_or_group.get_group(axis)
+             if hasattr(mesh_or_group, "get_group") else mesh_or_group)
+    world = dist.get_world_size(group)
+    params = [p for p in net.parameters() if p.requires_grad]
+
+    def train_step(samples):
+        if not samples:
+            raise ValueError("a rank with no samples")
+        optimizer.zero_grad()
+        loss = batched_loss(net, samples)
+        loss.backward()
+        k = float(len(samples))
+        flat = torch.cat(
+            [(torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1)
+             for p in params]
+            + [torch.stack([loss.detach(), loss.new_tensor(k),
+                            loss.new_tensor(k * k)])])
+        dist.all_reduce(flat, group=group)
+        total, total_sq = float(flat[-2]), float(flat[-1])
+        if total_sq * world != total * total:
+            raise ValueError(f"the ranks hold unequal sample counts "
+                             f"({total:g} samples over {world} ranks)")
+        flat /= world
+        off = 0
+        for p in params:
+            p.grad = flat[off:off + p.numel()].view_as(p).clone()
+            off += p.numel()
+        optimizer.step()
+        return flat[off].clone()
 
     return train_step

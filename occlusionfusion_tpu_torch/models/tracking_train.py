@@ -12,9 +12,13 @@ are pre-sampled to a fixed count with a validity mask.
 
 Why the port trains through K3'/K4' where JAX trains through XLA blocks:
 the JAX trainer forces ``assembly="blocks"`` because its Pallas kernels
-have no VJP. The port has one assembly route, the kernels K3' and K4' on
-the card, and ``solve_dense`` takes a differentiable branch when an input
-requires grad: each iteration's (M, b, sq) come from
+have no VJP. The port's ``GNConfig.assembly`` takes JAX's five values:
+``"dense_j"`` forms M = J^T J from the dense jacobian by matrix products
+(differentiable as plain torch ops), and every other value, "blocks"
+included, assembles by blocks through the kernels K3' and K4' on the
+card. ``solve_dense`` takes a differentiable branch when an input
+requires grad. Like JAX's, the trainer forces ``"blocks"``: each
+iteration's block system comes from
 ``ops/gn_assembly.PointTermAssembly`` / ``ArapTermAssembly``, whose
 forward is the kernel and whose backward is the twin's vector-Jacobian
 product. Both packages differentiate the same function, the
@@ -98,8 +102,11 @@ def tracking_forward(pwc, mask_net, sample: TrackingSample, gn: GNConfig):
         solve_node_mask=sample.node_valid,
         intrinsics=sample.intrinsics,
     )
+    # the block assembly whatever gn.assembly says, as the JAX trainer
+    # forces it
     result = solve_dense(
-        problem, gn, torch.eye(3, device=dev).expand(n, 3, 3).contiguous(),
+        problem, gn._replace(assembly="blocks"),
+        torch.eye(3, device=dev).expand(n, 3, 3).contiguous(),
         torch.zeros((n, 3), device=dev))
     return flow, weights, point_valid, result
 

@@ -52,12 +52,11 @@ from occlusionfusion_tpu_torch.solvers.gauss_newton import (
 K_ANCHORS = 4
 
 
-def point_term_blocks_torch(points, targets, point_valid, anchors, weights,
-                            nodes, R, t, sw: float, proj=None):
-    """Per-point blocks: gathers, the analytic jacobian blocks (scaled by
-    the 2d_depth rows' G where ``proj``), and the pair products as one
-    einsum. Returns (blk [P, 16, 6, 6], b [P, 4, 6], rsq [P]); the 16
-    anchor pairs in (k, l) row-major order."""
+def point_term_jacobian(points, targets, point_valid, anchors, weights,
+                        nodes, R, t, sw: float, proj=None):
+    """The point rows' jacobian blocks and residuals: (J [P, K, 3, 6], the
+    blocks of each point's rows at its K anchors, scaled by the 2d_depth
+    rows' G where ``proj``; r [P, 3])."""
     P, K = anchors.shape
     a = anchors.long()
     g = nodes[a]
@@ -73,17 +72,28 @@ def point_term_blocks_torch(points, targets, point_valid, anchors, weights,
     J = sw * torch.cat([Jw, Jt], dim=-1)  # [P, K, 3, 6]
     if proj is not None:
         J = torch.einsum("pab,pkbc->pkac", row_scaling(warped, proj), J)
+    return J, r
+
+
+def point_term_blocks_torch(points, targets, point_valid, anchors, weights,
+                            nodes, R, t, sw: float, proj=None):
+    """Per-point blocks: gathers, the analytic jacobian blocks (scaled by
+    the 2d_depth rows' G where ``proj``), and the pair products as one
+    einsum. Returns (blk [P, 16, 6, 6], b [P, 4, 6], rsq [P]); the 16
+    anchor pairs in (k, l) row-major order."""
+    P, K = anchors.shape
+    J, r = point_term_jacobian(points, targets, point_valid, anchors,
+                               weights, nodes, R, t, sw, proj)
     blk = torch.einsum("pkai,plaj->pklij", J, J).reshape(P, K * K, 6, 6)
     b = torch.einsum("pkai,pa->pki", J, r)
     return blk, b, torch.sum(r * r, dim=-1)
 
 
-def arap_term_blocks_torch(nodes, R, t, edges, wa):
-    """Per-edge blocks (the XLA ARAP branch of ``_assemble_blocks``).
-    ``edges`` [N, E] are clamped >= 0 and ``wa`` [N, E] is
-    sqrt(w_arap * edge weight), 0 on invalid edges. Returns ii [N, 6, 6]
-    summed over edges, ij/ji/jj [N, E, 6, 6], b_i [N, 6], b_j [N, E, 6],
-    rsq [N]."""
+def arap_term_jacobian(nodes, R, t, edges, wa):
+    """The ARAP rows' jacobian blocks and residuals, per edge: (Ji, the
+    block at node i, and Jj, at its neighbour j, [N, E, 3, 6]; r
+    [N, E, 3]). ``edges`` [N, E] are clamped >= 0 and ``wa`` [N, E] is
+    sqrt(w_arap * edge weight), 0 on invalid edges."""
     N, E = edges.shape
     e = edges.long()
     g_i = nodes[:, None]
@@ -95,6 +105,16 @@ def arap_term_blocks_torch(nodes, R, t, edges, wa):
     )
     Ji = torch.cat([-hat(rot), eye], dim=-1) * wa[..., None, None]
     Jj = torch.cat([torch.zeros_like(eye), -eye], dim=-1) * wa[..., None, None]
+    return Ji, Jj, r
+
+
+def arap_term_blocks_torch(nodes, R, t, edges, wa):
+    """Per-edge blocks (the XLA ARAP branch of ``_assemble_blocks``).
+    ``edges`` [N, E] are clamped >= 0 and ``wa`` [N, E] is
+    sqrt(w_arap * edge weight), 0 on invalid edges. Returns ii [N, 6, 6]
+    summed over edges, ij/ji/jj [N, E, 6, 6], b_i [N, 6], b_j [N, E, 6],
+    rsq [N]."""
+    Ji, Jj, r = arap_term_jacobian(nodes, R, t, edges, wa)
     ii = torch.sum(torch.einsum("neai,neaj->neij", Ji, Ji), dim=1)
     ij = torch.einsum("neai,neaj->neij", Ji, Jj)
     jj = torch.einsum("neai,neaj->neij", Jj, Jj)

@@ -3,9 +3,10 @@ mesh axis, the normal equations reduced with ``all_reduce`` (port of
 ``occlusionfusion_tpu/parallel/distributed_gn.py``).
 
 Every rank holds the whole problem and takes its block of the point
-arrays (``mesh.shard_rows``); the node state stays replicated, and every
-rank runs the same small solve on the same reduced system, so the node
-transforms need no broadcast.
+arrays (``mesh.shard_rows``), or, with ``sharded=True``, holds only its
+block already (the sharded engine's tables); the node state stays
+replicated, and every rank runs the same small solve on the same reduced
+system, so the node transforms need no broadcast.
 
 ``solve_dense_distributed`` is the production solver sharded: each rank
 adds its point shard (kernel K3' on the card, its twin on the CPU) and
@@ -37,11 +38,12 @@ from occlusionfusion_tpu_torch.solvers.gauss_newton import (
     _residuals,
 )
 from occlusionfusion_tpu_torch.solvers.gauss_newton_dense import (
-    _accumulate,
     _active_rows,
-    _cholesky_solve,
+    _add_terms,
     _fixed_terms,
+    _linear_solve,
     _retract,
+    check_assembly,
 )
 
 POINT_FIELDS = ("source_points", "point_anchors", "point_weights",
@@ -83,21 +85,42 @@ def _result(local: GNProblem, R, t, hist, ok) -> GNResult:
                     residual_history=hist, valid=ok)
 
 
+def _local(mesh, problem: GNProblem, axis: str, sharded: bool) -> GNProblem:
+    return problem if sharded else shard_problem(mesh, problem, axis)
+
+
 @torch.no_grad()
 def solve_dense_distributed(mesh, problem: GNProblem,
                             config: GNConfig = GNConfig(), axis: str = "data",
-                            init_rotations=None,
-                            init_translations=None) -> GNResult:
+                            init_rotations=None, init_translations=None,
+                            sharded: bool = False) -> GNResult:
     """The dense GN solve of ``solve_dense`` with the point term sharded
     over ``axis``: ``config.iters`` damped steps from (init_rotations,
-    init_translations) (identity and zero by default), each solved by
-    Cholesky whatever ``config.linear_solver`` says (as in JAX). P must
-    divide by the axis size. ``warped_points`` is this rank's shard
-    (``mesh.gather_blocks`` assembles it); ``residual_history`` is the
-    reduced squared residual of each iteration."""
+    init_translations) (identity and zero by default), the system
+    assembled by the "blocks" route and solved by Cholesky whatever
+    ``config.assembly`` and ``config.linear_solver`` say (as in JAX). P
+    must divide by the axis size; with ``sharded`` the problem's point
+    arrays are already this rank's block. ``warped_points`` is this
+    rank's shard (``mesh.gather_blocks`` assembles it);
+    ``residual_history`` is the reduced squared residual of each
+    iteration."""
+    return _solve_dense_shard(
+        mesh, _local(mesh, problem, axis, sharded),
+        config._replace(assembly="blocks", linear_solver="cholesky"), axis,
+        init_rotations, init_translations)
+
+
+@torch.no_grad()
+def _solve_dense_shard(mesh, local: GNProblem, config: GNConfig, axis: str,
+                      init_rotations, init_translations) -> GNResult:
+    """The loop of ``solve_dense_distributed`` on this rank's shard
+    ``local``, with the system assembled by ``config.assembly``'s route
+    and solved by ``config.linear_solver``: what GSPMD makes of
+    ``solve_dense`` inside the sharded fused step
+    (``parallel/engine.RankShard``)."""
+    check_assembly(config)
     n_shards = axis_size(mesh, axis)
     group = mesh.get_group(axis)
-    local = shard_problem(mesh, problem, axis)
     local = local._replace(
         edge_weights=local.edge_weights / n_shards,
         motion_confidence=local.motion_confidence / math.sqrt(n_shards),
@@ -123,11 +146,11 @@ def solve_dense_distributed(mesh, problem: GNProblem,
     ok = torch.ones((), dtype=torch.bool, device=dev)
     for it in range(config.iters):
         buf.zero_()
-        _accumulate(local, terms, R, t, M, b, sq)
+        _add_terms(local, config, terms, R, t, M, b, sq)
         _all_reduce(buf, group)
         hist[it] = sq
         A = torch.addcmul(damp, M, free66)
-        x, finite = _cholesky_solve(A, -b * free6, active)
+        x, finite = _linear_solve(A, -b * free6, free6, active, config)
         R, t, finite = _retract(R, t, x, finite, config.step_length)
         ok = ok & finite
     return _result(local, R, t, hist, ok)
@@ -135,7 +158,7 @@ def solve_dense_distributed(mesh, problem: GNProblem,
 
 @torch.no_grad()
 def solve_distributed(mesh, problem: GNProblem, config: GNConfig = GNConfig(),
-                      axis: str = "data") -> GNResult:
+                      axis: str = "data", sharded: bool = False) -> GNResult:
     """JAX's matrix-free GN-CG with the point residuals sharded over
     ``axis``: ``config.iters`` steps from identity, each ``config.cg_iters``
     CG iterations from zero without a preconditioner on
@@ -145,9 +168,10 @@ def solve_distributed(mesh, problem: GNProblem, config: GNConfig = GNConfig(),
     differentiation (``torch.func.jacfwd``, as the port's ``solve``
     does); the point term's J^T J v is summed by one ``all_reduce`` of the
     6N-vector per CG iteration, one more sums b and sq a step. P must
-    divide by the axis size; ``warped_points`` is this rank's shard."""
+    divide by the axis size (``sharded``: the point arrays are already
+    this rank's block); ``warped_points`` is this rank's shard."""
     group = mesh.get_group(axis)
-    local = shard_problem(mesh, problem, axis)
+    local = _local(mesh, problem, axis, sharded)
     n = local.nodes.shape[0]
     rows = 3 * local.source_points.shape[0]
     dev = local.nodes.device

@@ -139,6 +139,34 @@ def gather_blocks(mesh, x: torch.Tensor, axis: str = "data",
     return torch.cat(parts, dim=dim).to(x.device)
 
 
+def all_gather_rows(mesh, tensors, axis: str = "data") -> list:
+    """Every rank's row shards of ``tensors`` (each [rows, ...], all with
+    this rank's ``rows``) concatenated in rank order, on every rank: the
+    whole arrays, bit for bit. One collective for all of them: each is
+    packed by its bits into a column block of one int32 buffer (bool as
+    int32 0/1), gathered by ``gather_blocks`` (through the host under
+    gloo with CUDA tensors) and unpacked."""
+    rows = tensors[0].shape[0]
+    cols = []
+    for x in tensors:
+        if x.shape[0] != rows:
+            raise ValueError(f"rows {x.shape[0]} and {rows} differ")
+        y = x.reshape(rows, -1)
+        if y.dtype == torch.bool:
+            y = y.to(torch.int32)
+        if y.element_size() % 4:
+            raise ValueError(f"cannot pack {y.dtype} into 4-byte words")
+        cols.append(y.contiguous().view(torch.int32))
+    full = gather_blocks(mesh, torch.cat(cols, dim=1), axis)
+    out, c = [], 0
+    for x, y in zip(tensors, cols):
+        part = full[:, c:c + y.shape[1]].contiguous()
+        c += y.shape[1]
+        part = part != 0 if x.dtype == torch.bool else part.view(x.dtype)
+        out.append(part.reshape((-1,) + tuple(x.shape[1:])))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # launcher
 

@@ -11,7 +11,8 @@
   0's outputs of chunk r and its own carry from r - 1, so this is JAX's
   layer-by-layer ring. gloo sends no CUDA tensors: on a gloo group the
   carry (and only the carry) passes through host copies.
-* ``integrate_slab``: each rank integrates its x-slab of the volume.
+* ``integrate_slab``: each rank integrates its x-slab of the volume, or
+  its block of a bricked volume's slots.
 
 Each returns this rank's block; ``mesh.gather_blocks`` assembles them.
 """
@@ -80,7 +81,9 @@ def integrate_slab(mesh, config: T.TSDFConfig, state: T.TSDFState,
     """``tsdf.integrate`` of this rank's x-slab: the dense volume
     ``state`` [X, Y, Z] and its raveled voxel rows ``warped_points`` /
     ``warp_valid`` [X Y Z] (x-major) are taken by their block of X; the
-    images are replicated. Returns the slab's new state [X / n, Y, Z]."""
+    images are replicated. Returns the slab's new state [X / n, Y, Z].
+    A bricked volume's slots [MB, B, B, B] with their slot-major rows
+    [MB B^3] are taken the same way, by their block of MB."""
     X = state.tsdf.shape[0]
     rows = warped_points.shape[0] // X
     slab = T.TSDFState(

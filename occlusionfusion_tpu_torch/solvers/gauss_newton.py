@@ -27,6 +27,8 @@ from occlusionfusion_tpu_torch.geometry.so3 import so3_exp
 
 LINEAR_SOLVERS = ("cholesky", "cg", "schur", "ns")
 DATA_TERMS = ("point3d", "2d_depth")
+ASSEMBLIES = ("auto", "blocks", "blocks_pallas", "blocks_pallas_full",
+              "dense_j")
 
 
 class GNConfig(NamedTuple):
@@ -58,6 +60,15 @@ class GNConfig(NamedTuple):
     # of the J^T J contraction; the port assembles M in f32 whatever it
     # says, as the JAX package does on the CPU
     normal_matrix_precision: str = "highest"
+    # the dense solver's assembly of the normal equations, one of
+    # ASSEMBLIES. "dense_j" forms the row-stacked jacobian J and
+    # M = J^T J, b = J^T r by f32 matrix products (the JAX package's
+    # cross-validation twin, on either device). Every other value
+    # assembles by 6x6 blocks: K3' + K4' on CUDA tensors, their twins on
+    # CPU tensors, the system of the JAX "blocks" and
+    # "blocks_pallas_full" routes ("blocks_pallas" too but for its
+    # point-weight gating, ROADMAP F1, which the port does not copy)
+    assembly: str = "auto"
 
 
 class GNProblem(NamedTuple):

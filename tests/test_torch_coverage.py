@@ -59,20 +59,7 @@ RENAMES = {
 }
 
 # names that wait, with the ROADMAP item that holds them
-WAITING = {
-    # TPU only: the XLA dense-skin matmul replaced K2 on the TPU where it
-    # fit (ROADMAP "Open items": lbs_impl and dense_skin_max_bytes)
-    "ops/lbs.py::DenseSkin": "ROADMAP Open items",
-    "ops/lbs.py::dense_skin_bytes": "ROADMAP Open items",
-    "ops/lbs.py::lbs_warp_dense": "ROADMAP Open items",
-    "ops/lbs.py::precompute_dense_skin": "ROADMAP Open items",
-    # the sorted pair-scatter assembly (ROADMAP Queue 2 item 5)
-    "solvers/gauss_newton_dense.py::PairScatterPlan": "ROADMAP Queue 2 item 5",
-    "solvers/gauss_newton_dense.py::build_pair_scatter_plan":
-        "ROADMAP Queue 2 item 5",
-    "solvers/gauss_newton_dense.py::pair_segment_ids":
-        "ROADMAP Queue 2 item 5",
-}
+WAITING = {}
 
 
 def public_names(pkg):

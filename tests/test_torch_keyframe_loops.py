@@ -198,13 +198,11 @@ def test_keyframe_settings_are_ported(name, fused, clusters):
 
 
 def test_fusion_config_has_every_jax_field():
-    """All but the TPU-only dense skinning switches, with JAX's defaults
-    (the solver configs are the port's own types)."""
+    """Every JAX field and no other, with JAX's defaults (the solver
+    configs are the port's own types)."""
     fields_j = {f.name: f for f in dataclasses.fields(FusionConfigJ)}
     fields_t = {f.name: f for f in dataclasses.fields(FusionConfig)}
-    assert set(fields_j) - set(fields_t) == {"lbs_impl",
-                                             "dense_skin_max_bytes"}
-    assert set(fields_t) <= set(fields_j)
+    assert set(fields_t) == set(fields_j)
     cj, ct = FusionConfigJ(), FusionConfig()
     for name in set(fields_t) - {"graph", "nicp", "gn"}:
         assert getattr(ct, name) == getattr(cj, name), name

@@ -8,10 +8,9 @@ package's own subsamples; ROADMAP F14 as a fact in both packages: the
 rendered costs' weights change nothing (the JAX fused step lowers to the
 same program, the port's frames are equal), since no fusion path gives
 the solver a target depth. Also the configs' field coverage: every field of
-the JAX GNConfig (but ``assembly``) and NICPConfig has a port
+the JAX GNConfig (``assembly`` too) and NICPConfig has a port
 counterpart with the same default, and the port's FusionConfig has every
-JAX field but the TPU-only ``lbs_impl``/``dense_skin_max_bytes``, and no
-other.
+JAX field and no other.
 
 The GN cases cap the graph at 64 nodes (the sphere has 18), so that
 the Newton-Schulz products stay small on the CPU. Tolerances as
@@ -166,14 +165,14 @@ def _defaults(cls):
 
 
 def test_config_fields_cover_jax():
-    gn_j = _defaults(GNConfigJ)
-    assert gn_j.pop("assembly") == "auto"
-    assert _defaults(GNConfig) == gn_j
+    assert _defaults(GNConfig) == _defaults(GNConfigJ)
+    assert _defaults(GNConfig)["assembly"] == "auto"
     assert _defaults(NICPConfig) == _defaults(NICPConfigJ)
     fields_j = {f.name for f in dataclasses.fields(FusionConfigJ)}
     fields_t = {f.name for f in dataclasses.fields(FusionConfig)}
-    assert fields_j - fields_t == {"lbs_impl", "dense_skin_max_bytes"}
-    assert fields_t <= fields_j
+    assert fields_t == fields_j
+    assert (FusionConfig().lbs_impl, FusionConfig().dense_skin_max_bytes) \
+        == (FusionConfigJ().lbs_impl, FusionConfigJ().dense_skin_max_bytes)
     # every GN and N-ICP setting is accepted by the port's FusionConfig
     FusionConfig(solver="gn_dense", gn=GNConfig(**{
         **_defaults(GNConfig), "linear_solver": "schur",

@@ -178,8 +178,8 @@ def jax_lepard_match_counts():
         lepard.scene_flow = orig
 
 
-# the fields a port FusionConfig copies from a JAX one (the JAX-only
-# lbs_impl and dense_skin_max_bytes and the solver configs aside)
+# the fields a port FusionConfig copies from a JAX one (the solver
+# configs aside)
 SHARED_FUSION_FIELDS = (
     "vol_dim", "voxel_size", "trunc_margin_vox", "node_coverage",
     "max_nodes", "max_points", "max_depth_diff", "use_motion_model",
@@ -193,7 +193,8 @@ SHARED_FUSION_FIELDS = (
     "loop_min_inliers", "loop_min_separation", "loop_max_residual",
     "min_cluster_matches", "relocalize_threshold", "relocalize_min_obs_px",
     "relocalize_recover_inliers", "relocalize_recovery",
-    "relocalize_feat_min_points", "min_correction",
+    "relocalize_feat_min_points", "min_correction", "lbs_impl",
+    "dense_skin_max_bytes",
 )
 
 
